@@ -1,0 +1,27 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+A wrapper launches its kernel for CUDA tensors (and counts the launch in
+``<wrapper>.launches``) and runs the plain version for CPU tensors; there
+is no fallback from one to the other.  The sources are built at first use
+(:mod:`repro_torch.kernels._build`).
+"""
+from .clique_density import clique_pair_edges, clique_pair_edges_plain
+from .crm_update import crm_update, crm_update_plain
+from .merge_step import merge_density, merge_density_plain
+
+#: every kernel wrapper of the port, by name
+KERNELS = {
+    "crm_update": crm_update,
+    "clique_pair_edges": clique_pair_edges,
+    "merge_density": merge_density,
+}
+
+__all__ = [
+    "KERNELS",
+    "clique_pair_edges",
+    "clique_pair_edges_plain",
+    "crm_update",
+    "crm_update_plain",
+    "merge_density",
+    "merge_density_plain",
+]
