@@ -6,7 +6,9 @@
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` and holds each
    against its plain PyTorch version, bitwise, at the main path's shapes
-   and at ragged ones; times kernel, plain version and library call;
+   and at ragged ones (merge_density on inputs whose pair densities fall
+   on both sides of gamma); times kernel, plain version and library call
+   and works out each kernel's bound from the work these inputs need;
 3. for each configuration (``netflix-table2``: the paper's Table-II trace,
    60 items x 600 servers; ``catalog-10k``: 10,000 items x 600 servers),
    replays the trace with ``akpc`` through ``run_policy`` on the card,
@@ -53,10 +55,15 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.traces import SynthConfig, paper_trace, synth_trace  # noqa: E402
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor
-#: cores, and HBM3 bandwidth
+#: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): TF32 on the tensor
+#: cores (exact for the 0/1 products here: integer sums below 2**24 with
+#: fp32 accumulation), fp32 outside the tensor cores, and HBM3 bandwidth
+PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+#: (omega, gamma) cases of the merge_density check: the path's default
+#: and two that let other pair sizes and every density through
+MERGE_CASES = ((5, 0.85), (3, 0.0), (4, 0.6))
 SOURCES = {
     "crm_update": ("src/repro_torch/csrc/crm_update.cu",
                    "src/repro/kernels/crm_update.py:45"),
@@ -123,6 +130,34 @@ def path_inputs(rng, h: int, wcap: int, dev):
     return Hbuf.to(dev)[:, :h], M.to(dev), A.to(dev)
 
 
+def dense_inputs(rng, h: int, dev):
+    """A (2h, h) membership with the h slots in h // 2 groups and an
+    (h, h) CRM at edge density 0.9: pair densities spread across gamma,
+    so merge_density's arithmetic decides which entries pass."""
+    S = 2 * h
+    M = torch.zeros((S, h), dtype=torch.float32)
+    grp = torch.from_numpy(rng.integers(0, max(2, h // 2), size=h))
+    M[grp, torch.arange(h)] = 1.0
+    A = torch.from_numpy(rng.random((h, h)) < 0.9)
+    A = (torch.triu(A, 1) | torch.triu(A, 1).T).to(torch.float32)
+    return M.to(dev), A.to(dev)
+
+
+def product_ops(L: torch.Tensor, R: torch.Tensor) -> float:
+    """Multiply-adds (x2) that ``L @ R`` needs at these inputs: each k
+    pairs its nonzeros of column k of L with those of row k of R."""
+    return 2.0 * float(((L != 0).sum(dim=0, dtype=torch.float64)
+                        * (R != 0).sum(dim=1, dtype=torch.float64)).sum())
+
+
+def bound(ops: float, peak_ops: float, nbytes: float) -> dict:
+    """Least time for ``ops`` at ``peak_ops`` and ``nbytes`` at HBM rate."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
 def kernel_phase(shapes: dict, seed: int, dev) -> dict:
     """Build, check and time every kernel at each configuration's shapes
     plus ragged ones; returns per-kernel timing records by configuration."""
@@ -133,8 +168,25 @@ def kernel_phase(shapes: dict, seed: int, dev) -> dict:
     for label, (h, wcap) in {**shapes, **ragged}.items():
         H, M, A = path_inputs(rng, h, wcap, dev)
         S = 2 * h
-        X = clique_pair_edges(M, A)
-        sizes = M.sum(dim=1).to(torch.int32)
+        Md, Ad = dense_inputs(rng, h, dev)
+        X = clique_pair_edges_plain(Md, Ad)
+        sizes = Md.sum(dim=1).to(torch.int32)
+        passing = {}
+        for omega, g in MERGE_CASES:
+            g32 = float(np.float32(g))
+            want = merge_density_plain(X, sizes, omega, g32)
+            if not ((want >= 0).any() and (want < 0).any()):
+                raise AssertionError(
+                    f"merge_density check at {label} (omega={omega}, "
+                    f"gamma={g}) has no pair on one side of the gate")
+            if not torch.equal(merge_density(X, sizes, omega, g32), want):
+                raise AssertionError(
+                    f"merge_density differs from its plain version at "
+                    f"{label} (h={h}, omega={omega}, gamma={g})")
+            passing[f"omega={omega} gamma={g}"] = int((want >= 0).sum())
+        if not torch.equal(clique_pair_edges(Md, Ad), X):
+            raise AssertionError(f"clique_pair_edges differs from its plain "
+                                 f"version at {label} (dense A)")
         gamma = float(np.float32(0.85))
         cases = {
             "crm_update": (lambda: crm_update(H), lambda: crm_update_plain(H),
@@ -153,6 +205,8 @@ def kernel_phase(shapes: dict, seed: int, dev) -> dict:
             err = float((got - want).abs().max())
             report.append({"kernel": name, "shapes": label, "h": h,
                            "wcap": wcap, "equal": equal})
+            if name == "merge_density":
+                report[-1]["passing_pairs"] = passing
             if not equal:
                 raise AssertionError(
                     f"{name} differs from its plain version at {label} "
@@ -160,15 +214,13 @@ def kernel_phase(shapes: dict, seed: int, dev) -> dict:
             if label in ragged:
                 continue
             if name == "crm_update":
-                flops = 2.0 * wcap * h * h
-                nbytes = 4.0 * (wcap * h + h * h)
+                bnd = bound(product_ops(H.T, H), PEAK_TF32,
+                            4.0 * (wcap * h + h * h))
             elif name == "clique_pair_edges":
-                flops = 2.0 * S * h * h + 2.0 * S * S * h
-                nbytes = 4.0 * (S * h + h * h + S * S)
+                bnd = bound(product_ops(M, A) + product_ops(M @ A, M.T),
+                            PEAK_TF32, 4.0 * (S * h + h * h + S * S))
             else:
-                flops = 6.0 * S * S
-                nbytes = 4.0 * (2 * S * S + S)
-            t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+                bnd = bound(6.0 * S * S, PEAK_FP32, 4.0 * (2 * S * S + S))
             reps = 10 if name != "merge_density" else 100
             records.setdefault(label, {})[name] = {
                 "shape": {"h": h, "wcap": wcap, "S": S},
@@ -176,8 +228,7 @@ def kernel_phase(shapes: dict, seed: int, dev) -> dict:
                 "ms": cuda_time(kern, reps),
                 "plain_ms": cuda_time(plain, reps),
                 "library_ms": cuda_time(lib, reps) if lib else None,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                **bnd,
             }
     print("kernels " + json.dumps(report), flush=True)
     return records

@@ -7,11 +7,10 @@ from .cost import (
     CostModel,
     CostParams,
     get_cost_model,
-    list_cost_models,
 )
 from .crm import WindowCRM
 from .engine import CacheState, ReplayEngine
-from .policy import AKPCPolicy, RunResult, get_policy, list_policies, run_policy
+from .policy import AKPCPolicy, RunResult, get_policy, run_policy
 from .replay import TorchReplayEngine, run_policy_torch
 
 __all__ = [
@@ -29,8 +28,6 @@ __all__ = [
     "WindowCRM",
     "get_cost_model",
     "get_policy",
-    "list_cost_models",
-    "list_policies",
     "run_policy",
     "run_policy_torch",
 ]

@@ -20,9 +20,8 @@ class CliquePartition:
     ``cliques``    list of sorted int tuples (includes singletons)
     ``clique_of``  (n,) int32: item id -> clique index
 
-    The array-native views (``sizes``, ``packed``, ``membership_matrix``) are
-    derived from ``clique_of`` and cached — the engine, the session snapshots
-    and the kernels all share the same (k, max|c|) packed layout.
+    The array-native views (``sizes``, ``packed``) are derived from
+    ``clique_of`` and cached.
     """
 
     n: int
@@ -88,9 +87,8 @@ class CliquePartition:
     def packed(self) -> np.ndarray:
         """(k, max|c|) int64 member ids, -1 padded, rows in clique order.
 
-        The shared array-native layout: ``session.pack_partition`` snapshots
-        it, the engine segment-reduces over it, and each row lists members in
-        ascending id order (same order as the ``cliques`` tuples).
+        Each row lists members in ascending id order (the order of the
+        ``cliques`` tuples).
         """
         p = getattr(self, "_packed", None)
         if p is None:
@@ -115,17 +113,6 @@ class CliquePartition:
         """
         return np.argsort(self.clique_of, kind="stable")
 
-    def membership_matrix(self) -> np.ndarray:
-        """(k, n) float32 0/1 membership matrix M."""
-        M = np.zeros((self.k, self.n), dtype=np.float32)
-        M[self.clique_of, np.arange(self.n)] = 1.0
-        return M
-
-    def non_singletons(self) -> list[tuple[int, ...]]:
-        return [c for c in self.cliques if len(c) > 1]
-
-    def canonical(self) -> list[tuple[int, ...]]:
-        return sorted(self.non_singletons())
 
 
 def _flatten_groups(

@@ -78,23 +78,6 @@ class CostParams:
         """Cache lifetime extension Delta-t = rho * lambda / mu (Alg. 6)."""
         return self.rho * self.lam / self.mu
 
-    def transfer_cost(self, p: int, *, packed: bool) -> float:
-        """Transfer cost of moving ``p`` items in one event (Table I)."""
-        if p <= 0:
-            return 0.0
-        if not packed or p == 1:
-            return p * self.lam
-        if self.cost_mode == "paper_literal":
-            # Alg. 5 line 11 (literal):  C_T += alpha * mu * |c|
-            return self.alpha * self.mu * p
-        return (1.0 + (p - 1) * self.alpha) * self.lam
-
-    def caching_cost(self, n_items: int, duration: float) -> float:
-        """Rental cost of keeping ``n_items`` cached for ``duration`` time."""
-        if duration <= 0.0 or n_items <= 0:
-            return 0.0
-        return n_items * self.mu * duration
-
 
 # ---------------------------------------------------------------------------
 # environment: WHO pays WHAT — servers, prices, item sizes
@@ -287,44 +270,6 @@ class CostModel:
         """(E,) storage rent per unit time of each event's charged group."""
         raise NotImplementedError
 
-    def config_array(self) -> np.ndarray:
-        """Float fingerprint of model-specific config (tier schedules, ...)
-        beyond the environment — snapshots store it so a restore under a
-        differently-configured model of the same name is refused."""
-        return np.zeros(0)
-
-    # -- scalar conveniences (benchmarks / property tests) ------------------
-    def transfer_cost(self, p: int, *, packed: bool, sizes=None,
-                      server: int = 0) -> float:
-        """Transfer cost of ``p`` items: one packed event vs p singles.
-
-        ``sizes``: optional per-item sizes (p,); defaults to unit sizes.
-        """
-        if p <= 0:
-            return 0.0
-        s = np.ones(p) if sizes is None else np.asarray(sizes, np.float64)
-        if s.shape != (p,):
-            raise ValueError(f"sizes must have shape ({p},), got {s.shape}")
-        if packed:
-            return float(self.transfer_cost_batch(
-                np.array([p], dtype=np.int64),
-                np.array([float(s.sum())]),
-                np.array([server], dtype=np.int64))[0])
-        return float(self.transfer_cost_batch(
-            np.ones(p, dtype=np.int64), s,
-            np.full(p, server, dtype=np.int64)).sum())
-
-    def caching_cost(self, n_items: int, duration: float, sizes=None,
-                     server: int = 0) -> float:
-        """Rent of keeping ``n_items`` cached for ``duration`` time."""
-        if duration <= 0.0 or n_items <= 0:
-            return 0.0
-        s = float(n_items) if sizes is None else float(np.asarray(sizes).sum())
-        rate = self.caching_rate(
-            np.array([n_items], dtype=np.int64), np.array([s]),
-            np.array([server], dtype=np.int64))[0]
-        return float(rate * duration)
-
 
 _COST_MODELS: dict[str, type] = {}
 
@@ -365,10 +310,6 @@ def get_cost_model(
     return cls(env=env, **kwargs)
 
 
-def list_cost_models() -> list[str]:
-    return sorted(_COST_MODELS)
-
-
 # ---------------------------------------------------------------------------
 # shipped models
 # ---------------------------------------------------------------------------
@@ -397,15 +338,6 @@ class Table1CostModel(CostModel):
 
     def caching_rate(self, counts, sizes, servers) -> np.ndarray:
         return counts * self.params.mu
-
-    # scalar conveniences delegate to the EXACT pre-PR CostParams formulas
-    # (the generic base helpers would sum p singleton events, which differs
-    # from ``p * lam`` in the last ulp)
-    def transfer_cost(self, p, *, packed, sizes=None, server=0) -> float:
-        return self.params.transfer_cost(p, packed=packed)
-
-    def caching_cost(self, n_items, duration, sizes=None, server=0) -> float:
-        return self.params.caching_cost(n_items, duration)
 
 
 @register_cost_model("tiered")
@@ -474,9 +406,6 @@ class TieredCostModel(CostModel):
     def caching_rate(self, counts, sizes, servers) -> np.ndarray:
         self._check_bound()
         return self._mu[servers] * sizes
-
-    def config_array(self) -> np.ndarray:
-        return np.concatenate([self.breaks, self.rates])
 
 
 @register_cost_model("heterogeneous")

@@ -174,10 +174,6 @@ def get_policy(name: str, **kwargs) -> AKPCPolicy:
     return factory(**kwargs)
 
 
-def list_policies() -> list[str]:
-    return sorted(_REGISTRY)
-
-
 def run_policy(
     policy: AKPCPolicy | str,
     trace,

@@ -26,10 +26,12 @@ from repro_torch.kernels import (
 from repro_torch.traces import SynthConfig, synth_trace
 
 
+pytestmark = pytest.mark.skipif(not torch.cuda.is_available(),
+                                reason="needs a CUDA device")
+
+
 @pytest.fixture
 def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -41,9 +43,9 @@ def _incidence(rng, rows, h, d=5):
     return H
 
 
-def _membership(rng, S, h):
+def _membership(rng, S, h, groups=None):
     M = np.zeros((S, h), np.float32)
-    grp = rng.integers(-1, S, size=h)
+    grp = rng.integers(-1, S if groups is None else groups, size=h)
     ok = grp >= 0
     M[grp[ok], np.arange(h)[ok]] = 1.0
     return M
@@ -75,6 +77,19 @@ def test_kernels_equal_plain(cuda_device, h, rows):
         g32 = float(np.float32(gamma))
         assert torch.equal(merge_density(X, sizes, omega, g32),
                            merge_density_plain(X, sizes, omega, g32))
+    # dense CRM, slots in h // 2 groups: densities fall on both sides of
+    # gamma, so the division and the threshold decide the result
+    M = torch.from_numpy(_membership(rng, S, h, groups=max(2, h // 2))).to(dev)
+    A = torch.from_numpy(_binary(rng, h, p=0.9)).to(dev)
+    X = clique_pair_edges(M, A)
+    assert torch.equal(X, clique_pair_edges_plain(M, A))
+    sizes = M.sum(dim=1).to(torch.int32)
+    for omega, gamma in ((5, 0.85), (3, 0.0), (4, 0.6)):
+        g32 = float(np.float32(gamma))
+        want = merge_density_plain(X, sizes, omega, g32)
+        if h >= 32:
+            assert (want >= 0).any() and (want < 0).any()
+        assert torch.equal(merge_density(X, sizes, omega, g32), want)
     torch.cuda.synchronize()
 
 
