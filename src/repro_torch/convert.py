@@ -1,9 +1,10 @@
 """Carry a reference run's data and state into the port, from plain arrays.
 
 Data and state take the place of weights here: a trace, the cache state
-of a replay engine and the AKPC policy's previous-window CRM.  Every
-function takes plain numpy arrays (read off ``repro``'s objects by the
-caller), so the port never imports ``repro``.
+of a replay engine, and a policy's window state (the AKPC policy's
+partition and previous-window CRM, the TTL policy's keep-or-not mask).
+Every function takes plain numpy arrays (read off ``repro``'s objects by
+the caller), so the port never imports ``repro``.
 """
 from __future__ import annotations
 
@@ -53,3 +54,22 @@ def window_crm_from_arrays(hot_items, raw, norm, binary) -> WindowCRM:
         norm=np.asarray(norm, np.float32),
         binary=np.asarray(binary, bool),
     )
+
+
+def resume_policy(policy, *, clique_of=None, prev_crm: WindowCRM | None = None,
+                  keep=None) -> None:
+    """Carry a policy's window state into a bound port policy: the current
+    partition (``clique_of``, (n,)) and previous-window CRM of an AKPC
+    policy whose clique generation runs on the host, or the (n,)
+    keep-or-not mask of a TTL policy.  The policy must be bound to the
+    catalog first."""
+    if clique_of is not None:
+        of = np.asarray(clique_of, np.int32)
+        policy._partition = partition_from_of(of.shape[0], of)
+    if prev_crm is not None:
+        policy._prev_crm = prev_crm
+    if keep is not None:
+        keep = np.array(keep, dtype=bool)
+        if keep.shape != (policy.n,):
+            raise ValueError(f"keep mask shape {keep.shape} != ({policy.n},)")
+        policy._keep = keep

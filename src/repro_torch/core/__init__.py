@@ -1,4 +1,4 @@
-"""The AKPC replay with on-device clique generation (port of ``repro.core``)."""
+"""The AKPC packed-cache replay on the device (port of ``repro.core``)."""
 from .akpc import AKPCConfig
 from .cliques import CliquePartition
 from .cost import (
@@ -10,20 +10,35 @@ from .cost import (
 )
 from .crm import WindowCRM
 from .engine import CacheState, ReplayEngine
-from .policy import AKPCPolicy, RunResult, get_policy, run_policy
+from .policy import (
+    AKPCPolicy,
+    BasePolicy,
+    DPGreedyPolicy,
+    NoPackingPolicy,
+    PackCache2Policy,
+    RunResult,
+    TTLKeepOrNotPolicy,
+    get_policy,
+    run_policy,
+)
 from .replay import TorchReplayEngine, run_policy_torch
 
 __all__ = [
     "AKPCConfig",
     "AKPCPolicy",
+    "BasePolicy",
     "CacheEnvironment",
     "CacheState",
     "CliquePartition",
     "CostBreakdown",
     "CostModel",
     "CostParams",
+    "DPGreedyPolicy",
+    "NoPackingPolicy",
+    "PackCache2Policy",
     "ReplayEngine",
     "RunResult",
+    "TTLKeepOrNotPolicy",
     "TorchReplayEngine",
     "WindowCRM",
     "get_cost_model",

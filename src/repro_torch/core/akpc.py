@@ -2,7 +2,8 @@
 
 * Event 1 (every T_CG): Clique Generation Module — Alg. 2 (CRM), Alg. 4
   (adjust previous cliques), Alg. 3 (split oversized + approximate merge),
-  run on the device by :mod:`repro_torch.core.cgm`;
+  run on the device by :mod:`repro_torch.core.cgm` where it admits the
+  policy and the prices, else on the host (``AKPCPolicy.on_window``);
 * Event 2 (per request): Data Request Handling — Alg. 5;
 * Event 3 (expiry): Alg. 6 last-copy keepalive, folded into the anchor.
 
@@ -11,12 +12,15 @@ Ablation variants of the paper (Fig. 5/7/9), as registry names:
 * ``akpc_no_acm``   AKPC w/o ACM            split=True,  approx_merge=False
 * ``akpc_base``     AKPC w/o CS, w/o ACM    split=False, approx_merge=False
 
-The reference's host CRM hooks (``crm_matmul``, ``pair_edges``, ``kernels``)
-belong to its host clique generation, which this port does not carry.
+``crm_matmul`` / ``pair_edges`` are the host clique generation's hooks for
+``H^T H`` and ``M A M^T``; ``kernels="auto"`` wires the port's CUDA kernels
+``crm_update`` / ``clique_pair_edges`` in when the replay runs on CUDA
+(:mod:`repro_torch.kernels.autowire`), ``"off"`` keeps the numpy paths.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 from .cost import CostParams
 from .engine import CachingCharge
@@ -36,3 +40,8 @@ class AKPCConfig:
     seed_new_cliques: bool = True
     # requests per replay step; None = event-balanced default
     batch_size: int | None = None
+    # host clique-generation hooks; None + kernels="auto" wires the CUDA
+    # kernels in when the replay runs on CUDA
+    crm_matmul: Callable | None = None
+    pair_edges: Callable | None = None
+    kernels: str = "auto"            # "auto" | "off"

@@ -702,7 +702,7 @@ def _event_step(carry, x, spec, *, kind, charge, uses_sizes, item_sizes,
     first_c = torch.empty_like(first_c_s).scatter_(0, o_c, first_c_s)
     prev_j = torch.empty_like(prev_j_s).scatter_(0, o_c, prev_j_s)
 
-    # ---- the replay cost step (const dt: ``dt_e`` is dt[0] as a float) ----
+    # ---- the replay cost step (const dt: ``dt_e`` is dt[0] on the device) ----
     E_before = torch.where(first_cj, E[ev_c, j], prev_cj_t + dt_e)
     a0 = anchor[ev_c]
     anchor_alive = torch.where(
@@ -847,7 +847,10 @@ def run_cgm_schedule(schedule, spec, statics, cspec, carry0, item_sizes, *,
     gcap, full_merge = cgm_loop_statics(cspec, carry0, enable_acm=enable_acm)
     spec_d = spec_to_device(spec, dev)
     dt = spec_d["dt"]
-    dt_e = float(np.asarray(spec["dt"], np.float64)[0])
+    # dt[0] as a device scalar, not a Python float: CUDA divides a tensor
+    # by a host scalar as a product with its reciprocal, which can round
+    # differently from the numpy engine's division
+    dt_e = dt[0]
     uses_sizes = "vol" in carry0
     sz = (torch.as_tensor(np.asarray(item_sizes, np.float64), device=dev)
           if item_sizes is not None else None)

@@ -317,6 +317,8 @@ def wants_device_cgm(policy, trace, model) -> bool:
     co-occurrence counters exact is admitted.  Lanes that run the
     approximate merge OUTSIDE the pruning regime (the w/o-CS ablation)
     need a (2n, 2n) merge space, so those stay small-catalog only.
+    Custom ``crm_matmul`` / ``pair_edges`` hooks belong to the host clique
+    generation, so a policy with them takes the host path.
     """
     from .akpc import AKPCConfig
     from .policy import AKPCPolicy
@@ -329,6 +331,8 @@ def wants_device_cgm(policy, trace, model) -> bool:
         return False
     t_cg = getattr(policy, "t_cg", None)
     if t_cg is None:
+        return False
+    if cfg.crm_matmul is not None or cfg.pair_edges is not None:
         return False
     dt = np.asarray(model.dt(), np.float64)
     if dt.size and not (dt == dt[0]).all():

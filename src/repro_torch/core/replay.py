@@ -1,20 +1,30 @@
-"""The device replay: cost hooks, state transfer, engine and offline driver.
+"""The device replay: cost hooks, state transfer, the replay scan, engine, driver.
 
-The device half of ``repro.core.engine_jax`` as far as the AKPC replay with
-on-device clique generation needs it:
+The device half of ``repro.core.engine_jax``:
 
 * :func:`cost_spec` turns a cost model into per-server arrays plus a static
   kind, and :func:`_transfer_hook` / :func:`_rate_hook` price events from
   them on the device (table1, tiered, heterogeneous);
 * :func:`state_to_device` / :func:`apply_acc` move state and cost totals
   between the host :class:`~repro_torch.core.engine.CacheState` /
-  :class:`~repro_torch.core.cost.CostBreakdown` and the device carry;
+  :class:`~repro_torch.core.cost.CostBreakdown` and the device;
+* :func:`run_schedule` is the host-schedule replay scan: the state
+  recurrence (expiries ``E``, Alg.-6 ``anchor``, ratcheting, Alg.-5 cost
+  accounting, partition installs) over the padded step tensors of a
+  :class:`~repro_torch.core.schedule.ReplaySchedule`.  ``lax.scan`` is a
+  Python loop over steps; ``E`` and ``anchor`` are updated in place; the
+  step branches only on host values, so the loop makes no device sync.
+  Under per-server dt the anchor resolution and the pair expiries are
+  the kernels ``seg_running_argmax`` and ``seg_running_max``;
 * :class:`TorchReplayEngine` and :func:`run_policy_torch` are the
   counterparts of ``JaxReplayEngine`` and ``run_policy_jax``.
 
-``replay`` routes an AKPC policy to :func:`repro_torch.core.cgm.replay_cgm`.
-Everything else (the host-schedule replay scan behind the baselines and
-per-server dt) is port slice 2 and raises ``NotImplementedError``.
+``replay`` routes as the reference does: an AKPC policy that
+:func:`~repro_torch.core.cgm_schedule.wants_device_cgm` admits runs
+:func:`repro_torch.core.cgm.replay_cgm` (clique generation on the
+device); everything else builds the host schedule (clique generation on
+the host, items -> cliques through ``packed_lookup``) and runs
+:func:`run_schedule`.
 
 Entry points take ``device=None``, which means ``"cuda"``: without CUDA
 they raise unless the caller asked for ``device="cpu"``.
@@ -36,6 +46,10 @@ from .cost import (
 )
 from .engine import CacheState, ReplayEngine
 from .state_layout import StateLayout
+
+_I64 = torch.int64
+#: named host spans for ``torch.profiler``
+_span = torch.profiler.record_function
 
 #: cost models the device hooks express
 DEVICE_COST_MODELS = ("table1", "tiered", "heterogeneous")
@@ -158,6 +172,219 @@ def apply_acc(costs: CostBreakdown, schedule, acc: np.ndarray) -> CostBreakdown:
     return costs
 
 
+def _install_step(E, anchor, x, dt, now: float):
+    """Partition-install state translation on the device (in place).
+
+    Matched cliques that kept their index are untouched; matched cliques
+    whose index moved are a compact row move (``inst_mov_*``); only the
+    CHANGED cliques (``inst_chg_*``) pay the member-wise segment-min and
+    the Alg.-1 seeding.  Every gather reads the pre-install state before
+    the first write.  Padding rows point at the dump row K.
+    """
+    ncr = x["inst_chg_rows"].shape[0]
+    m = E.shape[1]
+    movE = E[x["inst_mov_src"]]                     # (nmv, m)
+    movA = anchor[x["inst_mov_src"]]
+    item_E = E[x["inst_chg_src"]]                   # (nci, m)
+    # segment_min over ncr segments: +inf where a segment is empty
+    min_E = torch.full((ncr, m), float("inf"), dtype=E.dtype,
+                       device=E.device)
+    seg = x["inst_chg_seg"][:, None].expand(-1, m)
+    min_E.scatter_reduce_(0, seg, item_E, "amin", include_self=True)
+    ok = x["inst_chg_ok"]
+    fresh = torch.where(ok[:, None] & (min_E > now), min_E, 0.0)
+    row_max = fresh.max(dim=1).values
+    anew = torch.where(row_max > 0.0, fresh.argmax(dim=1), -1)
+    need = ok & (row_max <= 0.0) & x["inst_seed_ok"]
+    sj = x["inst_seed_j"]
+    col = torch.arange(m, dtype=_I64, device=E.device)
+    fresh = torch.where(need[:, None] & (col[None, :] == sj[:, None]),
+                        (now + dt[sj])[:, None], fresh)
+    anew = torch.where(need, sj, anew)
+    E[x["inst_mov_dst"]] = movE
+    anchor[x["inst_mov_dst"]] = movA
+    E[x["inst_chg_rows"]] = fresh
+    anchor[x["inst_chg_rows"]] = anew
+
+
+def _seg_hooks(use_kernels: bool):
+    """(seg_running_max, seg_running_argmax): the kernels, or their plain
+    versions on the same device."""
+    from ..kernels import segment_reduce as sr
+
+    if use_kernels:
+        return sr.seg_running_max, sr.seg_running_argmax
+    return sr.seg_running_max_plain, sr.seg_running_argmax_plain
+
+
+def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
+                 const_dt, seg_max_fn, seg_argmax_fn, capture=None):
+    """One step of the replay scan: Alg. 5/6 over the step's events.
+
+    ``E`` / ``anchor`` / ``acc`` are updated in place.  ``dt0`` is
+    ``dt[0]`` as a device scalar (a Python float divisor would make CUDA
+    multiply by its reciprocal).  Each f64 operation is its own PyTorch
+    op, so it rounds once, as numpy does: the state is float for float the
+    numpy engine's.  ``capture`` (a dict) receives the scans' inputs.
+    """
+    K = E.shape[0] - 1
+    cl, j, t, val = x["ev_c"], x["ev_j"], x["ev_t"], x["val"]
+    dt_e = dt0 if const_dt else dt[j]
+    E_before = torch.where(x["first_cj"], E[cl, j], x["prev_cj_t"] + dt_e)
+
+    # --- anchor resolution ------------------------------------------------
+    if const_dt:
+        a0 = anchor[cl]
+        anchor_alive = torch.where(
+            x["first_c"], (a0 == j) & (E_before > 0.0), x["prev_j"] == j)
+    else:
+        first_cs = x["first_cs"]
+        e_val_s = x["t_s"] + dt[x["j_s"]]
+        if capture is not None:
+            capture["seg_running_argmax"] = (e_val_s.clone(), first_cs.clone())
+        v, bidx = seg_argmax_fn(e_val_s, first_cs)
+        bidx = bidx.to(_I64)
+        a0_s = anchor[x["c_s"]]
+        Eg = E[x["c_s"], a0_s.clamp(min=0)]         # in-range gather
+        Ea0_s = torch.where(a0_s >= 0, Eg, float("-inf"))
+        prev_v = torch.where(
+            first_cs, float("-inf"),
+            torch.cat([v.new_full((1,), float("-inf")), v[:-1]]))
+        prev_b = torch.where(
+            first_cs, 0, torch.cat([bidx.new_zeros(1), bidx[:-1]]))
+        inbatch = ~first_cs & (prev_v >= Ea0_s)
+        anchor_seen_s = torch.where(inbatch, x["j_s"][prev_b], a0_s)
+        anchor_seen = anchor_seen_s[x["inv_o_c"]]   # un-sort by gather
+        anchor_alive = (anchor_seen == j) & (E_before > 0.0)
+
+    fresh = E_before > t
+    nokeep = x.get("nokeep")
+    if nokeep is not None:
+        # keep-or-not (TTL) cliques: forced miss, and their state writes
+        # go to the dump row, so lag chains must not fabricate hits
+        fresh = fresh & ~nokeep
+        anchor_alive = anchor_alive & ~nokeep
+    alive = fresh | anchor_alive
+    miss = ~alive & val
+    lapsed = alive & ~fresh & val
+
+    # Alg. 6 ratcheting of lapsed anchor copies
+    steps = torch.ceil((t - E_before) / dt_e)
+    r = E_before + steps * dt_e
+    r = torch.where(r <= t, r + dt_e, r)
+    e_eff = torch.where(fresh, E_before, torch.where(lapsed, r, t))
+
+    # --- costs (the cost model's batched hooks) ---------------------------
+    size = x["size"]
+    csize = x["csize"] if "csize" in x else size
+    rate_stored = _rate_hook(kind, spec, size, csize, j)
+    rent = torch.where(lapsed, rate_stored * (e_eff - E_before), 0.0)
+    tc = torch.where(miss, _transfer_hook(kind, spec, size, csize, j), 0.0)
+    if charge == "requested":
+        rate = _rate_hook(kind, spec, x["n_req"],
+                          x["req_size"] if "req_size" in x else x["n_req"], j)
+    else:
+        rate = rate_stored
+    dur = torch.clamp((t + dt_e) - torch.maximum(e_eff, t), min=0.0)
+    cval = (val & ~nokeep) if nokeep is not None else val
+    cc = torch.where(cval, rate * dur, 0.0)
+    nm = miss.sum()
+    acc += torch.stack([
+        tc.sum(), cc.sum(), rent.sum(),
+        nm.to(torch.float64), (val.sum() - nm).to(torch.float64),
+        torch.where(miss, size, 0.0).sum(),
+    ])
+
+    # --- state update on the compacted segment-last arrays ----------------
+    uc, uj, ac = x["upd_c"], x["upd_j"], x["anc_c"]
+    if const_dt:
+        E[uc, uj] = x["upd_t"] + dt0
+        a_cur = anchor[ac]
+        aE = E[ac, a_cur.clamp(min=0)]              # POST-update E
+        upd = (a_cur < 0) | (x["anc_t"] + dt0 >= aE)
+        anchor[torch.where(upd, ac, K)] = x["anc_j"]
+    else:
+        e_cj_s = x["cj_t_s"] + dt[x["cj_j_s"]]
+        if capture is not None:
+            capture["seg_running_max"] = (e_cj_s.clone(),
+                                          x["first_cjs"].clone())
+        vmax = seg_max_fn(e_cj_s, x["first_cjs"])
+        E[uc, uj] = vmax[x["pos_u"]]
+        pa = x["pos_a"]
+        win = v[pa] >= Ea0_s[pa]
+        anchor[ac] = torch.where(win, x["j_s"][bidx[pa]], a0_s[pa])
+
+
+def schedule_to_device(schedule, device) -> dict:
+    """The schedule's step tensors on ``device``, in one upload per key;
+    int32 index arrays become int64."""
+    out = {}
+    for key, a in schedule.xs.items():
+        a = np.asarray(a)
+        if a.dtype == np.int32:
+            a = a.astype(np.int64)
+        out[key] = torch.as_tensor(a).to(device)
+    return out
+
+
+def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
+                 anchor: torch.Tensor, *, charge="requested",
+                 use_kernels: bool = True, stats: dict | None = None,
+                 check_syncs: bool = False):
+    """Execute one schedule on the device of ``E``; returns
+    ``(E, anchor, acc)``, all on that device (``E`` and ``anchor`` are
+    updated in place).
+
+    The step tensors go up once, before the loop.  Steps with neither
+    events nor an install are skipped (the schedule pads its step count to
+    a bucket; such steps write only the dump row).  ``stats`` receives
+    the step and install counts.  With capture on
+    (:mod:`repro_torch.kernels.capture`), the widest step's scan inputs
+    are kept.  ``check_syncs=True`` on a CUDA device makes any operation
+    of the loop that would synchronise with the host raise
+    (``torch.cuda.set_sync_debug_mode``): the loop is meant to make none.
+    """
+    from ..kernels import capture
+
+    dev = E.device
+    spec_d = spec_to_device(spec, dev)
+    dt = spec_d["dt"]
+    dt0 = dt[0] if dt.numel() else None
+    seg_max_fn, seg_argmax_fn = _seg_hooks(use_kernels)
+    xs = schedule_to_device(schedule, dev)
+    inst = np.asarray(schedule.xs["inst"])
+    now = np.asarray(schedule.xs["inst_now"])
+    n_ev = np.asarray(schedule.xs["val"]).sum(axis=1)
+    live = (n_ev > 0) | inst
+    widest = int(np.argmax(n_ev)) if capture.INPUTS is not None else -1
+    acc = torch.zeros(N_ACC, dtype=torch.float64, device=dev)
+    steps = installs = 0
+    seen: dict = {}
+    check = check_syncs and dev.type == "cuda"
+    if check:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in np.nonzero(live)[0].tolist():
+            x = {k: v[b] for k, v in xs.items()}
+            if inst[b]:
+                _install_step(E, anchor, x, dt, float(now[b]))
+                installs += 1
+            _replay_step(E, anchor, acc, x, spec_d, dt, dt0, kind=statics,
+                         charge=charge, const_dt=schedule.const_dt,
+                         seg_max_fn=seg_max_fn, seg_argmax_fn=seg_argmax_fn,
+                         capture=seen if b == widest else None)
+            steps += 1
+    finally:
+        if check:
+            torch.cuda.set_sync_debug_mode(mode)
+    for name, inputs in seen.items():
+        capture.keep_largest(name, int(n_ev[widest]), lambda: inputs)
+    if stats is not None:
+        stats.update(steps=steps, installs=installs, sync_scan=0)
+    return E, anchor, acc
+
+
 class TorchReplayEngine:
     """The device replay driver (counterpart of ``JaxReplayEngine``).
 
@@ -170,12 +397,16 @@ class TorchReplayEngine:
     def __init__(self, *args, engine: ReplayEngine | None = None,
                  device=None, layout: StateLayout | str | None = None,
                  **kwargs):
+        from ..kernels.packed_lookup import CliqueLookup
+
         self.device = resolve_device(device)
         self.layout = StateLayout.resolve(layout)   # dense only
         self.engine = engine if engine is not None else ReplayEngine(
             *args, **kwargs)
         self._spec, self._statics = cost_spec(
             self.engine.model, self.engine.env)
+        #: the host schedule's item -> clique lookup on this device
+        self.lookup = CliqueLookup(self.device)
         self.last_schedule = None
         self.last_stats: dict = {}
 
@@ -191,40 +422,94 @@ class TorchReplayEngine:
         self.engine.install_partition(*a, **k)
 
     def replay(self, trace, clique_generator=None, t_cg=None,
-               batch_size=None, *, next_cg0=None, win_prefix=None,
-               use_kernels: bool = True) -> CostBreakdown:
-        """Replay ``trace`` with the device clique generation.
+               batch_size=None, *, progress=None, next_cg0=None,
+               win_prefix=None, use_kernels: bool = True) -> CostBreakdown:
+        """Replay ``trace`` on the device, with clique generation every
+        ``t_cg`` by ``clique_generator`` (a policy's ``on_window``).
 
-        ``clique_generator`` is an AKPC policy's ``on_window``; its policy
-        runs on the device and gets its window bookkeeping back.
+        An AKPC policy the device clique generation admits runs it on the
+        device; everything else takes the host-schedule replay.
         ``use_kernels=False`` runs the plain versions in place of the
         kernels on the same device (the comparison run).
         """
         from .cgm import replay_cgm
         from .cgm_schedule import wants_device_cgm
+        from .schedule import build_schedule, pad_schedule, schedule_dims
 
-        pol = getattr(clique_generator, "__self__", None)
-        if pol is None or t_cg is None:
-            raise NotImplementedError(
-                "a replay without the AKPC clique generation runs the "
-                "host-schedule scan, which is port slice 2")
-        if not wants_device_cgm(pol, trace, self.engine.model):
-            raise NotImplementedError(
-                "this policy, cost model or trace is outside the device "
-                "clique generation (per-server dt, a non-AKPC policy, or a "
-                "hot set too large); its replay is port slice 2")
-        return replay_cgm(
-            self, pol, trace, t_cg=t_cg, batch_size=batch_size,
-            next_cg0=next_cg0, win_prefix=win_prefix,
-            use_kernels=use_kernels)
+        eng = self.engine
+        keep_fn = pol = None
+        if clique_generator is not None and t_cg is not None:
+            pol = getattr(clique_generator, "__self__", None)
+            keep_fn = getattr(pol, "item_keep", None)
+            if pol is not None and wants_device_cgm(pol, trace, eng.model):
+                return replay_cgm(
+                    self, pol, trace, t_cg=t_cg, batch_size=batch_size,
+                    next_cg0=next_cg0, win_prefix=win_prefix,
+                    use_kernels=use_kernels)
+            wire = getattr(pol, "wire_kernels", None)
+            if wire is not None:
+                wire(self.device, use_kernels)
+        t0 = time.perf_counter()
+        cg0 = getattr(pol, "cg_seconds", 0.0)
+        self.lookup.use_kernel = use_kernels
+        look0 = self.lookup.stats()
+        with _span("host.schedule"):
+            schedule = build_schedule(
+                eng.state.partition, trace, clique_generator, t_cg,
+                model=eng.model, env=eng.env, batch_size=batch_size,
+                seed_new_cliques=eng.seed_new_cliques,
+                next_cg0=next_cg0, win_prefix=win_prefix,
+                lookup=self.lookup, progress=progress, layout=self.layout,
+            )
+        # shape ratchet: pad every chunk's tensors up to the largest dims
+        # this engine has seen, as the reference does for its compiles
+        dims = schedule_dims(schedule)
+        prev = getattr(self, "_dims", None)
+        if prev is not None:
+            dims = {k: max(dims[k], prev[k]) for k in dims}
+        self._dims = dims
+        schedule = pad_schedule(schedule, dims)
+        self.last_schedule = schedule
+        t1 = time.perf_counter()
+        stats: dict = {}
+        part = schedule.final_partition
+        with _span("host.scan"):
+            E0, a0 = state_to_device(eng.state, schedule.n, self.device)
+            E, anchor, acc = run_schedule(
+                schedule, self._spec, self._statics, E0, a0,
+                charge=eng.caching_charge, use_kernels=use_kernels,
+                stats=stats)
+            acc = acc.cpu().numpy()
+            eng.state = CacheState.from_device(
+                part, E[:part.k].cpu().numpy(),
+                anchor[:part.k].cpu().numpy(), eng.m)
+        t2 = time.perf_counter()
+        eng._set_partition_caches(part)
+        apply_acc(eng.costs, schedule, acc)
+        if keep_fn is not None:
+            # boundary evictions already ran on the device; this only
+            # aligns the host engine's mask
+            eng.set_item_keep(keep_fn())
+        look = {key: v - look0[key]
+                for key, v in self.lookup.stats().items()}
+        cg_s = getattr(pol, "cg_seconds", 0.0) - cg0
+        stats.update(
+            path="host_schedule", nb=schedule.nb, ne=schedule.ne,
+            const_dt=schedule.const_dt, sync_final=3,
+            schedule_s=t1 - t0, cg_s=cg_s, **look,
+            schedule_rest_s=t1 - t0 - cg_s - look["lookup_s"],
+            scan_s=t2 - t1)
+        self.last_stats = stats
+        return eng.costs
 
 
 def run_policy_torch(policy, trace, *, device=None, batch_size=None,
-                     use_kernels: bool = True):
+                     progress=None, use_kernels: bool = True):
     """Offline driver on the device: the counterpart of ``run_policy_jax``.
 
-    Binds the policy, resolves the environment, replays the trace in T_CG
-    windows with the clique generation on the device, and returns a
+    Binds the policy, resolves the environment, installs an offline
+    policy's initial partition, replays the trace in T_CG windows (clique
+    generation only when the policy has a ``t_cg``), and returns a
     :class:`~repro_torch.core.policy.RunResult`.
     """
     from .policy import RunResult, get_policy
@@ -248,9 +533,10 @@ def run_policy_torch(policy, trace, *, device=None, batch_size=None,
     part0 = policy.initial_partition(trace)
     if part0 is not None:
         eng.install_partition(part0, now=0.0)
+    gen = policy.on_window if policy.t_cg is not None else None
     bs = batch_size if batch_size is not None else policy.batch_size
-    eng.replay(trace, clique_generator=policy.on_window, t_cg=policy.t_cg,
-               batch_size=bs, use_kernels=use_kernels)
+    eng.replay(trace, clique_generator=gen, t_cg=policy.t_cg,
+               batch_size=bs, progress=progress, use_kernels=use_kernels)
     return RunResult(
         policy=policy.name,
         costs=eng.costs,

@@ -23,7 +23,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 #: the kernels' sources, by library name
-SOURCES = ("crm_update", "clique_density", "merge_step")
+SOURCES = ("crm_update", "clique_density", "merge_step", "segment_reduce",
+           "packed_lookup")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",

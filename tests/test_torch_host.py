@@ -4,9 +4,8 @@
 * schedule: ``build_cgm_schedule``, ``cgm_spec``, ``hot_capacity`` and
   ``cost_spec`` equal the JAX package's host functions;
 * imports: ``repro_torch`` and ``chip_smoke`` load neither jax nor repro;
-* routing: entry points default to CUDA and raise without it; policies
-  and prices outside the device clique generation raise
-  ``NotImplementedError`` instead of falling back.
+* routing: entry points default to CUDA and raise without it; the one
+  policy not ported (``learned``) raises ``NotImplementedError``.
 """
 import os
 import pathlib
@@ -226,19 +225,9 @@ def test_default_device_needs_cuda():
         TorchReplayEngine(trace.n, trace.m)
 
 
-def test_per_server_dt_raises_not_implemented():
-    trace = synth_trace(SynthConfig(**TRACE_KW[0]))
-    env = CacheEnvironment.skewed(trace.n, trace.m, CostParams(),
-                                  price_sigma=0.5, seed=1)
-    pol = get_policy("akpc", t_cg=0.73, env=env, cost_model="heterogeneous")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        run_policy(pol, trace, device="cpu")
-
-
-@pytest.mark.parametrize("name", ["no_packing", "ttl", "packcache",
-                                  "dp_greedy", "learned"])
+@pytest.mark.parametrize("name", ["learned"])
 def test_host_schedule_policies_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="learned-policy slice"):
         get_policy(name)
 
 
