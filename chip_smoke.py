@@ -2,21 +2,24 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--requests 1000000] [--requests2 N]
+                          [--requests3 N]
 
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and holds the three kernels of the device clique
-   generation against their plain PyTorch versions, bitwise, at the main
-   path's shapes and at ragged ones; times kernel, plain version and
-   library call and works out each kernel's bound from the work these
-   inputs need;
+   source, in parallel);
 3. the AKPC replay with the device clique generation, for each of
    ``netflix-table2`` (the paper's Table-II trace, 60 items x 600 servers)
    and ``catalog-10k`` (10,000 items x 600 servers): ``akpc`` through
    ``run_policy`` on the card, every kernel of the path launched, again
    with the plain versions, equal partitions, E/anchor and costs at 1e-9,
-   and a head of the trace on the CPU equal to the card;
-4. the host-schedule replay: ``hetero-table2`` (the Table-II trace with
+   and a head of the trace on the CPU equal to the card; the kernels'
+   inputs are captured from the card run;
+4. holds the three kernels of the device clique generation against their
+   plain PyTorch versions, bitwise, on the captured inputs, on synthetic
+   ones at the same shapes and on ragged ones; times kernel, plain
+   version and library call on the captured inputs and works out each
+   kernel's bound from the work these inputs need;
+5. the host-schedule replay: ``hetero-table2`` (the Table-II trace with
    lognormal item sizes under the heterogeneous cost model, per-server
    dt) with ``akpc``, ``no_packing``, ``ttl``, ``packcache`` and
    ``dp_greedy``; ``hetero-catalog-10k`` with ``akpc``; and ``no_packing``
@@ -24,10 +27,25 @@
    stay idle).  Each run: kernels on the card, every expected kernel
    launched, plain versions on the card (no launch), equal state and
    costs, a CPU head equal to the card's;
-5. holds the scan and gather kernels (and the CGM kernels at the host
+6. ``kernels_bench``: the kernel benchmark (``python -m
+   repro_torch.bench.kernel_bench``), the only path of ``unpacked_lookup``:
+   every row bitwise against the plain version, the two lookups against
+   each other on the same bytes, plus ragged lookups (d 1, 3, 255, 256;
+   int32, float32, float64; R 1) and an id out of range that must raise;
+7. ``sweep_fig6``: the fig6 (64 alphas x 4 rhos) AKPC grid over
+   ``netflix-table2`` as one ``SweepEngine`` call (one host schedule per
+   rho, 64 scenario lanes each), 8 points of it against serial card runs
+   (the device clique generation) and all 256 on a 20,000-request head
+   against serial CPU runs: costs at 1e-9, equal partitions and state;
+8. ``sweep_fig10``: fig10's grid (2 size distributions x 3 price sigmas x
+   no_packing / packcache / akpc, heterogeneous prices, 150 servers) at
+   1M requests as one sweep: per-server dt, so the lane-batched scans
+   launch; every point against a serial card run;
+9. holds the scan and gather kernels (and the CGM kernels at the host
    clique generation's shapes) against their plain versions on inputs
-   captured from those replays and on ragged ones, and times them;
-6. prints the kernels' JSON line and, last, the result line.
+   captured from those replays (the scans also in the sweep's lane form)
+   and on ragged ones, and times them;
+10. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
 Writes the kernel build log (and ``--profile`` tables) under ``--out``
@@ -48,10 +66,28 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.bench import kernel_bench  # noqa: E402
+from repro_torch.bench.common import (  # noqa: E402
+    PEAK_FP32,
+    PEAK_FP64,
+    PEAK_TF32,
+    bound,
+    cuda_time,
+    product_ops,
+    t_cg_for,
+)
+from repro_torch.bench.sweep_bench import (  # noqa: E402
+    assert_parity,
+    build_grid,
+    env_for,
+    fig10_points,
+    same_costs,
+)
 from repro_torch.core import (  # noqa: E402
     CacheEnvironment,
     CacheState,
     CostParams,
+    SweepEngine,
     get_cost_model,
     get_policy,
     run_policy,
@@ -82,17 +118,11 @@ from repro_torch.kernels import (  # noqa: E402
     seg_running_argmax_plain,
     seg_running_max,
     seg_running_max_plain,
+    unpacked_lookup,
+    unpacked_lookup_plain,
 )
 from repro_torch.traces import SynthConfig, paper_trace, synth_trace  # noqa: E402
 
-#: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): TF32 on the tensor
-#: cores (exact for the 0/1 products here: integer sums below 2**24 with
-#: fp32 accumulation), fp32 and fp64 outside the tensor cores (the scans'
-#: float64 comparisons count at the fp64 rate), and HBM3 bandwidth
-PEAK_TF32 = 495e12
-PEAK_FP32 = 67e12
-PEAK_FP64 = 34e12
-PEAK_BYTES = 3.35e12
 #: (omega, gamma) cases of the merge_density check: the path's default
 #: and two that let other pair sizes and every density through
 MERGE_CASES = ((5, 0.85), (3, 0.0), (4, 0.6))
@@ -109,6 +139,8 @@ SOURCES = {
                         "src/repro/kernels/segment_reduce.py:95"),
     "packed_lookup": ("src/repro_torch/csrc/packed_lookup.cu",
                       "src/repro/kernels/packed_lookup.py:61"),
+    "unpacked_lookup": ("src/repro_torch/csrc/packed_lookup.cu",
+                        "src/repro/kernels/packed_lookup.py:79"),
 }
 #: the kernels of the AKPC replay with the device clique generation
 CGM_KERNELS = ("crm_update", "clique_pair_edges", "merge_density")
@@ -117,21 +149,20 @@ SEG_KERNELS = ("seg_running_argmax", "seg_running_max")
 #: requests of each configuration's head that also run on the CPU
 HEAD = {"netflix-table2": 20_000, "catalog-10k": 5_000,
         "hetero-table2": 20_000, "hetero-catalog-10k": 5_000}
-#: fig10's server-price skew (lognormal sigma of lam_j / mu_j) and seed
+#: fig10's server-price skew (lognormal sigma of lam_j / mu_j)
 PRICE_SIGMA = 1.0
-PRICE_SEED = 1
 #: ragged scan lengths (the replay's step width is about 8192)
 RAGGED_L = (1, 7, 8191, 8193, 100_000)
+#: lane-form scan checks: (lanes S, length L)
+LANE_CASES = ((1, 9), (3, 7), (8, 8193), (64, 1000))
+#: fig6's sweep grid (sweep_bench's defaults) and the points of it held
+#: against serial card runs: every rho at the two end alphas
+FIG6_ALPHAS, FIG6_RHOS = 64, 4
+#: ragged unpacked lookups: row widths, element types, requests
+RAGGED_D = (1, 3, 255, 256)
+RAGGED_DTYPES = (torch.int32, torch.float32, torch.float64)
 #: the replay's named profiler spans (``core/cgm.py``)
 SPANS = ("cgm.", "replay.", "host.")
-
-
-def t_cg_for(trace, dt: float = 1.0) -> float:
-    """Clique-generation period: a small multiple of the cache TTL dt
-    (the formula of the reference's benchmarks; dt = rho lam / mu = 1 at
-    the default CostParams)."""
-    span = float(trace.times[-1] - trace.times[0])
-    return float(min(max(0.3 * dt, span / 50.0), max(span / 4.0, 1e-6)))
 
 
 def make_trace(config: str, n_requests: int, seed: int):
@@ -153,16 +184,6 @@ def make_trace(config: str, n_requests: int, seed: int):
         size_dist="lognormal" if config.startswith("hetero") else "unit"))
 
 
-def env_for(trace, params: CostParams, price_sigma: float,
-            seed: int = PRICE_SEED) -> CacheEnvironment:
-    """fig10's environment: lognormal per-server prices from
-    ``CacheEnvironment.skewed``, item sizes from the trace."""
-    sk = CacheEnvironment.skewed(
-        trace.n, trace.m, params, price_sigma=price_sigma, seed=seed)
-    return CacheEnvironment.from_trace(
-        trace, params, lam_j=sk.lam_j, mu_j=sk.mu_j)
-
-
 def akpc(t_cg: float):
     return get_policy("akpc", params=CostParams(), t_cg=t_cg, top_frac=0.1)
 
@@ -176,21 +197,6 @@ def host_policy(name: str, t_cg: float, env, cost_model: str):
           "akpc": dict(t_cg=t_cg, top_frac=0.1)}[name]
     return get_policy(name, params=CostParams(), env=env,
                       cost_model=cost_model, **kw)
-
-
-def cuda_time(fn, reps: int) -> float:
-    """Milliseconds per call of ``fn``, by CUDA events over ``reps`` calls
-    after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def path_inputs(rng, h: int, wcap: int, dev):
@@ -222,35 +228,52 @@ def dense_inputs(rng, h: int, dev):
     return M.to(dev), A.to(dev)
 
 
-def product_ops(L: torch.Tensor, R: torch.Tensor) -> float:
-    """Multiply-adds (x2) that ``L @ R`` needs at these inputs: each k
-    pairs its nonzeros of column k of L with those of row k of R."""
-    return 2.0 * float(((L != 0).sum(dim=0, dtype=torch.float64)
-                        * (R != 0).sum(dim=1, dtype=torch.float64)).sum())
+def _equal(got, want) -> tuple[bool, float]:
+    """Bitwise equality and max abs error of a tensor or a tuple of them."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    eq = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = 0.0
+    for a, b in zip(got, want):
+        if a.numel():
+            d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+            d = torch.nan_to_num(d, nan=0.0)   # -inf - -inf at equal bits
+            err = max(err, float(d.max()))
+    return eq, err
 
 
-def bound(ops: float, peak_ops: float, nbytes: float) -> dict:
-    """Least time for ``ops`` at ``peak_ops`` and ``nbytes`` at HBM rate."""
-    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": ops, "bytes": nbytes}
+def held_equal(report: list, name, label, kern, plain) -> float:
+    """Run a kernel and its plain version; fail unless they agree bit for
+    bit.  Appends the check to ``report``; returns the max abs error."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    eq, err = _equal(got, want)
+    report.append({"kernel": name, "inputs": label, "equal": eq})
+    if not eq:
+        raise AssertionError(f"{name} differs from its plain version on "
+                             f"{label}: max abs err {err}")
+    return err
 
 
-def kernel_phase(shapes: dict, seed: int, dev) -> dict:
-    """Build, check and time every kernel at each configuration's shapes
-    plus ragged ones; returns per-kernel timing records by configuration."""
+def kernel_phase(shapes: dict, captured: dict, seed: int, dev) -> dict:
+    """The device clique generation's kernels: bitwise against their plain
+    versions on synthetic inputs at each configuration's shapes and at
+    ragged ones, and on the inputs captured from each configuration's
+    replay, on which they are timed.  Returns per-kernel timing records by
+    configuration."""
     rng = np.random.default_rng(seed)
     records: dict = {}
     ragged = {"ragged": (37, 1001), "ragged-wide": (1000, 3333)}
-    report = []
+    report: list = []
+
+    def held(*a):
+        return held_equal(report, *a)
+
     for label, (h, wcap) in {**shapes, **ragged}.items():
         H, M, A = path_inputs(rng, h, wcap, dev)
-        S = 2 * h
         Md, Ad = dense_inputs(rng, h, dev)
         X = clique_pair_edges_plain(Md, Ad)
         sizes = Md.sum(dim=1).to(torch.int32)
-        passing = {}
         for omega, g in MERGE_CASES:
             g32 = float(np.float32(g))
             want = merge_density_plain(X, sizes, omega, g32)
@@ -258,51 +281,52 @@ def kernel_phase(shapes: dict, seed: int, dev) -> dict:
                 raise AssertionError(
                     f"merge_density check at {label} (omega={omega}, "
                     f"gamma={g}) has no pair on one side of the gate")
-            if not torch.equal(merge_density(X, sizes, omega, g32), want):
-                raise AssertionError(
-                    f"merge_density differs from its plain version at "
-                    f"{label} (h={h}, omega={omega}, gamma={g})")
-            passing[f"omega={omega} gamma={g}"] = int((want >= 0).sum())
-        if not torch.equal(clique_pair_edges(Md, Ad), X):
-            raise AssertionError(f"clique_pair_edges differs from its plain "
-                                 f"version at {label} (dense A)")
+            held("merge_density", f"synthetic {label} omega={omega} "
+                 f"gamma={g} ({int((want >= 0).sum())} passing pairs)",
+                 lambda: merge_density(X, sizes, omega, g32),
+                 lambda: want)
+        held("clique_pair_edges", f"synthetic {label} (dense A)",
+             lambda: clique_pair_edges(Md, Ad), lambda: X)
         gamma = float(np.float32(0.85))
+        held("crm_update", f"synthetic {label}", lambda: crm_update(H),
+             lambda: crm_update_plain(H))
+        held("clique_pair_edges", f"synthetic {label}",
+             lambda: clique_pair_edges(M, A),
+             lambda: clique_pair_edges_plain(M, A))
+        held("merge_density", f"synthetic {label}",
+             lambda: merge_density(X, sizes, 5, gamma),
+             lambda: merge_density_plain(X, sizes, 5, gamma))
+
+    for label in shapes:
+        cap = captured[label]
+        (H,) = cap["crm_update"]
+        M, A = cap["clique_pair_edges"]
+        X, sizes, omega, g32 = cap["merge_density"]
+        wcap, h = H.shape
+        S = M.shape[0]
         cases = {
             "crm_update": (lambda: crm_update(H), lambda: crm_update_plain(H),
-                           lambda: H.T @ H),
-            "clique_pair_edges": (lambda: clique_pair_edges(M, A),
-                                  lambda: clique_pair_edges_plain(M, A),
-                                  lambda: M @ A @ M.T),
-            "merge_density": (lambda: merge_density(X, sizes, 5, gamma),
-                              lambda: merge_density_plain(X, sizes, 5, gamma),
-                              None),
+                           lambda: H.T @ H,
+                           bound(product_ops(H.T, H), PEAK_TF32,
+                                 4.0 * (wcap * h + h * h))),
+            "clique_pair_edges": (
+                lambda: clique_pair_edges(M, A),
+                lambda: clique_pair_edges_plain(M, A),
+                lambda: M @ A @ M.T,
+                bound(product_ops(M, A) + product_ops(M @ A, M.T),
+                      PEAK_TF32, 4.0 * (S * h + h * h + S * S))),
+            "merge_density": (
+                lambda: merge_density(X, sizes, omega, g32),
+                lambda: merge_density_plain(X, sizes, omega, g32), None,
+                bound(6.0 * S * S, PEAK_FP32, 4.0 * (2 * S * S + S))),
         }
-        for name, (kern, plain, lib) in cases.items():
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            equal = torch.equal(got, want)
-            err = float((got - want).abs().max())
-            report.append({"kernel": name, "shapes": label, "h": h,
-                           "wcap": wcap, "equal": equal})
-            if name == "merge_density":
-                report[-1]["passing_pairs"] = passing
-            if not equal:
-                raise AssertionError(
-                    f"{name} differs from its plain version at {label} "
-                    f"(h={h}, wcap={wcap}): max abs err {err}")
-            if label in ragged:
-                continue
-            if name == "crm_update":
-                bnd = bound(product_ops(H.T, H), PEAK_TF32,
-                            4.0 * (wcap * h + h * h))
-            elif name == "clique_pair_edges":
-                bnd = bound(product_ops(M, A) + product_ops(M @ A, M.T),
-                            PEAK_TF32, 4.0 * (S * h + h * h + S * S))
-            else:
-                bnd = bound(6.0 * S * S, PEAK_FP32, 4.0 * (2 * S * S + S))
+        for name, (kern, plain, lib, bnd) in cases.items():
+            err = held(name, f"captured {label}", kern, plain)
             reps = 10 if name != "merge_density" else 100
             records.setdefault(label, {})[name] = {
-                "shape": {"h": h, "wcap": wcap, "S": S},
+                "shape": {"h": h, "wcap": wcap, "S": S,
+                          "captured_size": cap["sizes"][name]},
+                "inputs": "captured",
                 "max_abs_err": err,
                 "ms": cuda_time(kern, reps),
                 "plain_ms": cuda_time(plain, reps),
@@ -320,19 +344,15 @@ def same_state(a, b) -> None:
         raise AssertionError("final E/anchor differ")
 
 
-def same_costs(a, b) -> None:
-    da, db = a.costs.as_dict(), b.costs.as_dict()
-    for k in ("n_requests", "n_item_requests", "n_misses", "n_hits",
-              "items_transferred"):
-        if da[k] != db[k]:
-            raise AssertionError(f"{k}: {da[k]} != {db[k]}")
-    for k in ("transfer", "caching", "keepalive_rent", "total"):
-        if not np.isclose(da[k], db[k], rtol=1e-9, atol=0.0):
-            raise AssertionError(f"{k}: {da[k]} != {db[k]} at 1e-9")
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
-def slice_phase(config: str, trace, t_cg: float) -> dict:
-    """The main path on the card, its plain-version twin and a CPU head."""
+def slice_phase(config: str, trace, t_cg: float) -> tuple[dict, dict]:
+    """The main path on the card, its plain-version twin and a CPU head.
+    Returns the ``slice`` record and the kernels' inputs captured from the
+    card run."""
     head = trace.slice(0, min(HEAD[config], trace.n_requests))
     t_head = t_cg_for(head)
     gpu_head = run_policy(akpc(t_head), head)
@@ -341,13 +361,16 @@ def slice_phase(config: str, trace, t_cg: float) -> dict:
         raise AssertionError(f"{config}: the CPU check's head has "
                              f"{gpu_head.n_windows} windows")
     same_state(gpu_head.state, cpu_head.state)
-    same_costs(gpu_head, cpu_head)
+    same_costs(gpu_head, cpu_head, f"{config} CPU head")
 
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
+    capture.INPUTS = {}
     torch.cuda.synchronize()
     res = run_policy(akpc(t_cg), trace)
     launches = {name: fn.launches for name, fn in KERNELS.items()}
+    captured = {k: v[1] for k, v in capture.INPUTS.items()}
+    captured["sizes"] = {k: v[0] for k, v in capture.INPUTS.items()}
+    capture.INPUTS = None
     for name in CGM_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{config}: kernel {name} never launched")
@@ -355,7 +378,7 @@ def slice_phase(config: str, trace, t_cg: float) -> dict:
     if any(fn.launches != launches[name] for name, fn in KERNELS.items()):
         raise AssertionError("the plain run launched a kernel")
     same_state(res.state, plain.state)
-    same_costs(res, plain)
+    same_costs(res, plain, f"{config} plain")
     total = res.total
     if not (np.isfinite(total) and total > 0.0):
         raise AssertionError(f"total cost {total} is not a positive number")
@@ -376,12 +399,7 @@ def slice_phase(config: str, trace, t_cg: float) -> dict:
         "cpu_head_windows": cpu_head.n_windows,
     }
     print("slice " + json.dumps(out), flush=True)
-    return out
-
-
-def reset_launches() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    return out, captured
 
 
 def sync_check(pol, trace) -> int:
@@ -425,10 +443,10 @@ def slice2_phase(config: str, trace, names, cost_model: str,
     env = env_of(trace)
     dt = np.asarray(get_cost_model(cost_model, env).dt(), np.float64)
     per_server = bool((dt != dt[0]).any())
-    t_cg = t_cg_for(trace, float(dt.max()))
+    t_cg = t_cg_for(trace, params, env=env, cost_model=cost_model)
     head = trace.slice(0, min(HEAD[config], trace.n_requests))
     env_h = env_of(head)
-    t_head = t_cg_for(head, float(dt.max()))
+    t_head = t_cg_for(head, params, env=env_h, cost_model=cost_model)
     out, captured = {}, {}
     for name in names:
         t0 = time.perf_counter()
@@ -441,7 +459,7 @@ def slice2_phase(config: str, trace, names, cost_model: str,
             raise AssertionError(f"{config}/{name}: the CPU check's head "
                                  f"has {gpu_head.n_windows} windows")
         same_state(gpu_head.state, cpu_head.state)
-        same_costs(gpu_head, cpu_head)
+        same_costs(gpu_head, cpu_head, f"{config}/{name} CPU head")
         sync_steps = sync_check(pol, head)
 
         reset_launches()
@@ -472,7 +490,7 @@ def slice2_phase(config: str, trace, names, cost_model: str,
         if any(fn.launches != launches[k] for k, fn in KERNELS.items()):
             raise AssertionError("the plain run launched a kernel")
         same_state(res.state, plain.state)
-        same_costs(res, plain)
+        same_costs(res, plain, f"{config}/{name} plain")
         total = res.total
         if not (np.isfinite(total) and total > 0.0):
             raise AssertionError(f"total cost {total} is not positive")
@@ -521,37 +539,17 @@ def scan_inputs(rng, L: int, starts: str, dev):
     return (torch.from_numpy(v).to(dev), torch.from_numpy(s).to(dev))
 
 
-def _equal(got, want) -> tuple[bool, float]:
-    """Bitwise equality and max abs error of a tensor or a tuple of them."""
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    eq = all(torch.equal(a, b) for a, b in zip(got, want))
-    err = 0.0
-    for a, b in zip(got, want):
-        if a.numel():
-            d = (a.to(torch.float64) - b.to(torch.float64)).abs()
-            d = torch.nan_to_num(d, nan=0.0)   # -inf - -inf at equal bits
-            err = max(err, float(d.max()))
-    return eq, err
-
-
 def kernel_phase2(captured: dict, seed: int, dev) -> dict:
     """The scan and gather kernels, and the CGM kernels at the host clique
     generation's shapes: bitwise against their plain versions on inputs
     captured from the replays and on ragged ones; timed on the captured
     inputs.  Returns timing records by kernel and configuration."""
     rng = np.random.default_rng(seed)
-    report, records = [], {}
+    report: list = []
+    records: dict = {}
 
-    def held(name, label, kern, plain):
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        eq, err = _equal(got, want)
-        report.append({"kernel": name, "inputs": label, "equal": eq})
-        if not eq:
-            raise AssertionError(f"{name} differs from its plain version on "
-                                 f"{label}: max abs err {err}")
-        return err
+    def held(*a):
+        return held_equal(report, *a)
 
     for L in RAGGED_L:
         for starts in ("all", "first", "0.01", "0.5"):
@@ -562,6 +560,22 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
                  lambda: seg_running_argmax_plain(v, s))
             held("seg_running_max", label, lambda: seg_running_max(v, s),
                  lambda: seg_running_max_plain(v, s))
+    # the sweep's lane form: (S, L) values over one shared (L,) start vector,
+    # against the plain version and against the one-lane kernel per lane
+    for S, L in LANE_CASES:
+        v = torch.stack([scan_inputs(rng, L, "first", dev)[0]
+                         for _ in range(S)])
+        s = scan_inputs(rng, L, "0.01", dev)[1]
+        label = f"lanes S={S} L={L}"
+        held("seg_running_argmax", label,
+             lambda: seg_running_argmax(v, s),
+             lambda: seg_running_argmax_plain(v, s))
+        held("seg_running_max", label, lambda: seg_running_max(v, s),
+             lambda: seg_running_max_plain(v, s))
+        held("seg_running_max", label + " per lane",
+             lambda: seg_running_max(v, s),
+             lambda: torch.stack([seg_running_max(v[i].contiguous(), s)
+                                  for i in range(S)]))
     for (C, om, d, R, dtype) in ((4096, 5, 128, 4096, torch.float32),
                                  (4096, 5, 128, 777, torch.float64),
                                  (61, 1, 1, 9999, torch.int32),
@@ -576,22 +590,24 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
 
     for cfg, cap in captured.items():
         cases = {}
+        # the scans' values are (S, L): S scenario lanes over one (L,)
+        # start vector (S = 1 outside a sweep)
         if "seg_running_argmax" in cap:
             v, s = cap["seg_running_argmax"]
-            L = int(v.shape[0])
+            S, L = v.shape
             cases["seg_running_argmax"] = (
                 lambda v=v, s=s: seg_running_argmax(v, s),
                 lambda v=v, s=s: seg_running_argmax_plain(v, s), None,
-                bound(float(L), PEAK_FP64, L * (8.0 + 1 + 8 + 4)),
-                {"L": L, "segments": int(s.sum())})
+                bound(float(S * L), PEAK_FP64, S * L * (8.0 + 8 + 4) + L),
+                {"S": S, "L": L, "segments": int(s.sum())})
         if "seg_running_max" in cap:
             v, s = cap["seg_running_max"]
-            L = int(v.shape[0])
+            S, L = v.shape
             cases["seg_running_max"] = (
                 lambda v=v, s=s: seg_running_max(v, s),
                 lambda v=v, s=s: seg_running_max_plain(v, s), None,
-                bound(float(L), PEAK_FP64, L * (8.0 + 1 + 8)),
-                {"L": L, "segments": int(s.sum())})
+                bound(float(S * L), PEAK_FP64, S * L * (8.0 + 8) + L),
+                {"S": S, "L": L, "segments": int(s.sum())})
         if "packed_lookup" in cap:
             clique_of, items = cap["packed_lookup"]
             table = torch.from_numpy(clique_of.astype(np.int32)).reshape(
@@ -603,11 +619,14 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
                 lambda t=table, i=ids: packed_lookup(t, i, ids_checked=True),
                 lambda t=table, i=ids: packed_lookup_plain(t, i),
                 lambda t=table, i=ids: t.index_select(0, i),
-                bound(0.0, PEAK_FP32, 4.0 * R + 2 * 4.0 * R),
+                # the ids, each table entry they touch, the output
+                bound(0.0, PEAK_FP32,
+                      4.0 * R + 4.0 * int(torch.unique(ids).numel())
+                      + 4.0 * R),
                 {"C": int(table.shape[0]), "R": R})
         if "crm_update" in cap:
             (H,) = cap["crm_update"]
-            Hd = torch.from_numpy(H).to(dev)
+            Hd = torch.as_tensor(H).to(dev)
             rows, h = Hd.shape
             cases["crm_update"] = (
                 lambda H=Hd: crm_update(H), lambda H=Hd: crm_update_plain(H),
@@ -617,7 +636,7 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
                 {"rows": int(rows), "h": int(h)})
         if "clique_pair_edges" in cap:
             M, A = cap["clique_pair_edges"]
-            Md, Ad = torch.from_numpy(M).to(dev), torch.from_numpy(A).to(dev)
+            Md, Ad = torch.as_tensor(M).to(dev), torch.as_tensor(A).to(dev)
             S, h = Md.shape
             cases["clique_pair_edges"] = (
                 lambda M=Md, A=Ad: clique_pair_edges(M, A),
@@ -687,6 +706,187 @@ def profile_phase(config: str, trace, make_policy, out_dir) -> dict:
     return out
 
 
+def kernels_bench_phase(dev) -> tuple[list, dict]:
+    """The kernel benchmark, the only path of ``unpacked_lookup``, with the
+    launch counts of its run; then ragged lookups held bitwise against
+    the plain versions (and the packed gather of the same bytes), and ids
+    out of range, which must raise."""
+    reset_launches()
+    torch.cuda.synchronize()
+    recs = kernel_bench.run(dev)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    if launches["unpacked_lookup"] <= 0 or launches["packed_lookup"] <= 0:
+        raise AssertionError("the kernel benchmark launched no lookup kernel")
+    rng = np.random.default_rng(7)
+    report = []
+    C, omega = 101, 5
+    for d in RAGGED_D:
+        for dtype in RAGGED_DTYPES:
+            for R in (1, 777):
+                table = torch.from_numpy(
+                    rng.standard_normal((C, omega, d)) * 100).to(dtype).to(dev)
+                items = table.reshape(C * omega, d)
+                cids = torch.from_numpy(
+                    rng.integers(0, C, R).astype(np.int32)).to(dev)
+                iids = (cids[:, None] * omega + torch.arange(
+                    omega, dtype=torch.int32, device=dev)).to(torch.int32)
+                rids = torch.from_numpy(rng.integers(
+                    0, C * omega, (R, 3)).astype(np.int32)).to(dev)
+                got = unpacked_lookup(items, iids)
+                got_r = unpacked_lookup(items, rids)
+                eq = (torch.equal(got, unpacked_lookup_plain(items, iids))
+                      and torch.equal(got, packed_lookup(table, cids))
+                      and torch.equal(got_r, unpacked_lookup_plain(items,
+                                                                   rids)))
+                torch.cuda.synchronize()
+                label = f"d={d} {dtype} R={R}"
+                report.append({"kernel": "unpacked_lookup", "inputs": label,
+                               "equal": eq})
+                if not eq:
+                    raise AssertionError(f"unpacked_lookup differs from its "
+                                         f"plain version at {label}")
+    items = torch.zeros((10, 4), dtype=torch.float32, device=dev)
+    for bad in (-1, 10):
+        ids = torch.tensor([[0, bad]], dtype=torch.int32, device=dev)
+        try:
+            unpacked_lookup(items, ids)
+        except IndexError:
+            report.append({"kernel": "unpacked_lookup",
+                           "inputs": f"id {bad} of 10", "raised": True})
+            continue
+        raise AssertionError(f"unpacked_lookup took id {bad} of 10")
+    print("kernels_bench_ragged " + json.dumps(report), flush=True)
+    print("kernels_bench " + json.dumps(recs), flush=True)
+    return recs, launches
+
+
+def same_point(a, b, tag) -> None:
+    """Equal final partition, E and anchor of two runs of one point."""
+    try:
+        same_state(a.state, b.state)
+    except AssertionError as e:
+        raise AssertionError(f"{tag}: {e}") from None
+
+
+def sweep_fig6_phase(trace) -> dict:
+    """fig6's grid as one sweep on the card, 8 points of it against serial
+    card runs and the whole grid on a head against serial CPU runs."""
+    pts = build_grid(trace, FIG6_ALPHAS, FIG6_RHOS)
+    # rho enters the clique generation only through t_cg: one schedule per
+    # distinct t_cg (rhos whose t_cg clips to the same value share one)
+    want_schedules = len({p.policy_kwargs["t_cg"] for p in pts})
+    reset_launches()
+    torch.cuda.synchronize()
+    eng = SweepEngine()
+    swept = eng.run(pts)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    for k in ("packed_lookup", "crm_update", "clique_pair_edges"):
+        if launches[k] <= 0:
+            raise AssertionError(f"sweep fig6: kernel {k} never launched")
+    if any(launches[k] for k in SEG_KERNELS):
+        raise AssertionError("sweep fig6: a scan kernel launched at a "
+                             "uniform dt")
+    if eng.last_n_schedules != want_schedules:
+        raise AssertionError(f"sweep fig6 built {eng.last_n_schedules} "
+                             f"schedules, not {want_schedules}")
+    for p, r in zip(pts, swept):
+        if not (np.isfinite(r.total) and r.total > 0.0
+                and r.costs.n_requests == trace.n_requests):
+            raise AssertionError(f"sweep fig6 {p.tag}: total {r.total}")
+    idx = [k * FIG6_ALPHAS + a for k in range(FIG6_RHOS)
+           for a in (0, FIG6_ALPHAS - 1)]
+    sub = [pts[i] for i in idx]
+    md0 = KERNELS["merge_density"].launches
+    ser = SweepEngine(backend="serial")
+    serial = ser.run(sub)
+    if KERNELS["merge_density"].launches == md0:
+        raise AssertionError("the serial fig6 runs did not take the device "
+                             "clique generation")
+    assert_parity(sub, serial, [swept[i] for i in idx])
+    for i, r in zip(idx, serial):
+        same_point(r, swept[i], pts[i].tag)
+
+    head = trace.slice(0, min(HEAD["netflix-table2"], trace.n_requests))
+    pts_h = build_grid(head, FIG6_ALPHAS, FIG6_RHOS)
+    swept_h = SweepEngine().run(pts_h)
+    ser_cpu = SweepEngine(backend="serial", device="cpu")
+    cpu = ser_cpu.run(pts_h)
+    assert_parity(pts_h, cpu, swept_h)
+    for p, a, b in zip(pts_h, cpu, swept_h):
+        same_point(a, b, f"head {p.tag}")
+    groups = eng.last_stats["groups"]
+    line = {
+        "config": "netflix-table2", "requests": trace.n_requests,
+        "points": len(pts), "alphas": FIG6_ALPHAS, "rhos": FIG6_RHOS,
+        "schedules": eng.last_n_schedules,
+        "expected_schedules": want_schedules,
+        "lanes": [g["lanes"] for g in groups],
+        "sweep_wall_s": eng.last_wall,
+        "sweep_per_point_s": eng.last_wall / len(pts),
+        "scan_s": [g["scan_s"] for g in groups],
+        "schedule_s": [b["schedule_s"] for b in eng.last_stats["builds"]],
+        "cg_s": [b["cg_s"] for b in eng.last_stats["builds"]],
+        "lookup_s": [b["lookup_s"] for b in eng.last_stats["builds"]],
+        "serial_points": len(sub), "serial_wall_s": ser.last_wall,
+        "serial_per_point_s": ser.last_wall / len(sub),
+        "launches": launches,
+        "cpu_head_requests": head.n_requests,
+        "cpu_head_points": len(pts_h),
+        "cpu_serial_per_point_s": ser_cpu.last_wall / len(pts_h),
+    }
+    print("sweep_fig6 " + json.dumps(line), flush=True)
+    return line
+
+
+def sweep_fig10_phase(n_requests: int) -> tuple[dict, dict]:
+    """fig10's grid as one sweep on the card (per-server dt: the lane
+    scans run), every point against a serial card run.  Returns the
+    ``sweep_fig10`` record and the widest lane scan's inputs."""
+    pts = fig10_points(n_requests)
+    reset_launches()
+    capture.INPUTS = {}
+    torch.cuda.synchronize()
+    eng = SweepEngine()
+    swept = eng.run(pts)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    captured = {k: v[1] for k, v in capture.INPUTS.items()
+                if k in SEG_KERNELS}
+    capture.INPUTS = None
+    groups = eng.last_stats["groups"]
+    lanes = [g["lanes"] for g in groups if not g["const_dt"]]
+    for k in (*SEG_KERNELS, "packed_lookup"):
+        if launches[k] <= 0:
+            raise AssertionError(f"sweep fig10: kernel {k} never launched")
+    if not lanes or max(lanes) < 2:
+        raise AssertionError("sweep fig10 ran no per-server-dt group with "
+                             "more than one lane")
+    ser = SweepEngine(backend="serial")
+    serial = ser.run(pts)
+    assert_parity(pts, serial, swept)
+    for p, a, b in zip(pts, serial, swept):
+        same_point(a, b, p.tag)
+        if not (np.isfinite(b.total) and b.total > 0.0):
+            raise AssertionError(f"sweep fig10 {p.tag}: total {b.total}")
+    line = {
+        "requests": n_requests, "points": len(pts),
+        "schedules": eng.last_n_schedules,
+        "lanes": [g["lanes"] for g in groups],
+        "per_server_dt_lanes": lanes,
+        "sweep_wall_s": eng.last_wall,
+        "sweep_per_point_s": eng.last_wall / len(pts),
+        "scan_s": [g["scan_s"] for g in groups],
+        "schedule_s": [b["schedule_s"] for b in eng.last_stats["builds"]],
+        "cg_s": [b["cg_s"] for b in eng.last_stats["builds"]],
+        "lookup_s": [b["lookup_s"] for b in eng.last_stats["builds"]],
+        "serial_wall_s": ser.last_wall,
+        "serial_per_point_s": ser.last_wall / len(pts),
+        "launches": launches,
+        "totals": {p.tag: r.total for p, r in zip(pts, swept)},
+    }
+    print("sweep_fig10 " + json.dumps(line), flush=True)
+    return line, captured
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -694,7 +894,10 @@ def main() -> int:
                     help="requests of each AKPC device-CGM configuration "
                     "(cut only this)")
     ap.add_argument("--requests2", type=int, default=1_000_000,
-                    help="requests of each host-schedule configuration")
+                    help="requests of each host-schedule configuration "
+                    "(and of the fig6 sweep's trace)")
+    ap.add_argument("--requests3", type=int, default=1_000_000,
+                    help="requests of each trace of the fig10 sweep")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="also profile the akpc replay of each device-CGM "
                     "configuration's first N requests (tables under --out)")
@@ -717,7 +920,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: matmul allow_tf32=False cudnn allow_tf32=False", flush=True)
     for flag, n in (("requests", args.requests),
-                    ("requests2", args.requests2)):
+                    ("requests2", args.requests2),
+                    ("requests3", args.requests3)):
         if n != 1_000_000:
             print(f"cut: --{flag} {n} per configuration (n and m "
                   "unchanged)", flush=True)
@@ -758,15 +962,16 @@ def main() -> int:
           "(nvcc, sm_90a, in parallel)", flush=True)
     phase("build", t0)
 
-    t0 = time.perf_counter()
-    records = kernel_phase({c: (v[2], v[3]) for c, v in configs.items()},
-                           args.seed, dev)
-    phase("kernels_cgm", t0)
-    results = {}
+    results, captured_cgm = {}, {}
     for c, v in configs.items():
         t0 = time.perf_counter()
-        results[c] = slice_phase(c, v[0], v[1])
+        results[c], captured_cgm[c] = slice_phase(c, v[0], v[1])
         phase(f"slice1 {c}", t0)
+    t0 = time.perf_counter()
+    records = kernel_phase({c: (v[2], v[3]) for c, v in configs.items()},
+                           captured_cgm, args.seed, dev)
+    del captured_cgm
+    phase("kernels_cgm", t0)
 
     results2, captured = {}, {}
     plan = (("hetero-table2", ("akpc", "no_packing", "ttl", "packcache",
@@ -783,6 +988,16 @@ def main() -> int:
         phase(f"slice2 {key}", t0)
 
     t0 = time.perf_counter()
+    bench_recs, bench_launches = kernels_bench_phase(dev)
+    phase("kernels_bench", t0)
+    t0 = time.perf_counter()
+    fig6 = sweep_fig6_phase(traces2["netflix-table2"])
+    phase("sweep_fig6", t0)
+    t0 = time.perf_counter()
+    fig10, captured["sweep-fig10"] = sweep_fig10_phase(args.requests3)
+    phase("sweep_fig10", t0)
+
+    t0 = time.perf_counter()
     records2 = kernel_phase2(captured, args.seed, dev)
     phase("kernels_host_path", t0)
     t0 = time.perf_counter()
@@ -796,8 +1011,8 @@ def main() -> int:
             tr = traces2[c]
             head = tr.slice(0, min(args.profile2, tr.n_requests))
             env = env_for(head, CostParams(), PRICE_SIGMA)
-            dt_max = float(get_cost_model("heterogeneous", env).dt().max())
-            t_head = t_cg_for(head, dt_max)
+            t_head = t_cg_for(head, CostParams(), env=env,
+                              cost_model="heterogeneous")
             profile_phase(c, head, lambda: host_policy(
                 "akpc", t_head, env, "heterogeneous"), out_dir)
     if args.profile or args.profile2:
@@ -816,16 +1031,34 @@ def main() -> int:
             for c, rec2 in records2.get(name, {}).items():
                 by_config[f"{c} host CGM"] = {
                     **rec2, "launches": results2[c]["akpc"]["launches"][name]}
+        elif name == "unpacked_lookup":
+            brecs = [r for r in bench_recs if r["name"] == name]
+            rec = dict(brecs[-1])
+            launches = bench_launches[name]
+            by_config = {f"kernel_bench {r['shape']['config']}":
+                         {**r, "launches": launches} for r in brecs}
         else:
             rec = dict(records2[name][main_cfg2])
             launches = results2[main_cfg2]["akpc"]["launches"][name]
-            by_config = {c: {**r, "launches":
-                             results2[c]["akpc"]["launches"][name]}
-                         for c, r in records2[name].items()}
+            by_config = {}
+            for c, r in records2[name].items():
+                runs = results2.get(c)
+                n_l = (runs["akpc"]["launches"][name] if runs
+                       else fig10["launches"][name])
+                by_config[c] = {**r, "launches": n_l}
             for key, runs in results2.items():
                 for pol, line in runs.items():
                     by_config.setdefault(f"{key} {pol}", {})["launches"] = \
                         line["launches"][name]
+            by_config.setdefault("sweep-fig6", {})["launches"] = \
+                fig6["launches"][name]
+            by_config.setdefault("sweep-fig10", {})["launches"] = \
+                fig10["launches"][name]
+            if name == "packed_lookup":
+                for r in bench_recs:
+                    if r["name"] == name:
+                        by_config[f"kernel_bench {r['shape']['config']}"] = {
+                            **r, "launches": bench_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches, **rec,

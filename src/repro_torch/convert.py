@@ -1,7 +1,8 @@
 """Carry a reference run's data and state into the port, from plain arrays.
 
-Data and state take the place of weights here: a trace, the cache state
-of a replay engine, and a policy's window state (the AKPC policy's
+Data and state take the place of weights here: a trace, a pricing
+scenario's arrays, the cache state of a replay engine, and a policy's
+window state (the AKPC policy's
 partition and previous-window CRM, the TTL policy's keep-or-not mask).
 Every function takes plain numpy arrays (read off ``repro``'s objects by
 the caller), so the port never imports ``repro``.
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .core.cgm_schedule import partition_from_of
+from .core.cost import CacheEnvironment, CostParams
 from .core.crm import WindowCRM
 from .core.engine import CacheState
 from .traces.loader import Trace
@@ -26,6 +28,19 @@ def trace_from_arrays(items, servers, times, n: int, m: int,
         n=int(n), m=int(m), name=name,
         sizes=None if sizes is None else np.asarray(sizes, np.float64),
     )
+
+
+def env_from_arrays(n: int, m: int, params: CostParams, lam_j=None,
+                    mu_j=None, item_sizes=None) -> CacheEnvironment:
+    """A port :class:`CacheEnvironment` from a scenario's per-server prices
+    ``lam_j`` / ``mu_j`` (m,) and per-item sizes (n,); None keeps the
+    homogeneous default, as in the reference."""
+    def arr(a):
+        return None if a is None else np.array(a, np.float64)
+
+    return CacheEnvironment(n=int(n), m=int(m), params=params,
+                            lam_j=arr(lam_j), mu_j=arr(mu_j),
+                            item_sizes=arr(item_sizes))
 
 
 def state_from_arrays(clique_of, E, anchor, m: int) -> CacheState:

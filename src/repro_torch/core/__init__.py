@@ -22,6 +22,7 @@ from .policy import (
     run_policy,
 )
 from .replay import TorchReplayEngine, run_policy_torch
+from .sweep import SweepEngine, SweepPoint, sweep_points
 
 __all__ = [
     "AKPCConfig",
@@ -38,6 +39,8 @@ __all__ = [
     "PackCache2Policy",
     "ReplayEngine",
     "RunResult",
+    "SweepEngine",
+    "SweepPoint",
     "TTLKeepOrNotPolicy",
     "TorchReplayEngine",
     "WindowCRM",
@@ -45,4 +48,5 @@ __all__ = [
     "get_policy",
     "run_policy",
     "run_policy_torch",
+    "sweep_points",
 ]

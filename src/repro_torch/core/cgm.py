@@ -51,6 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import capture
 from ..kernels.clique_density import clique_pair_edges, clique_pair_edges_plain
 from ..kernels.crm_update import crm_update, crm_update_plain
 from ..kernels.merge_step import merge_density, merge_density_plain
@@ -244,6 +245,9 @@ def _window_crm_device(carry, cspec, *, n, h, wcap, use_kernels):
     hcol = torch.where(hs >= 0, hs, h)               # cold/stale -> dump col
     H = torch.zeros((wcap, h + 1), dtype=torch.float32, device=dev)
     H[rowi, hcol] = 1.0
+    # with capture on, keep the fullest window's input (rows live)
+    capture.keep_largest("crm_update", carry["wlen"],
+                         lambda: (H.clone()[:, :h],))
     raw = (crm_update if use_kernels else crm_update_plain)(H[:, :h])
     hi = raw.max().to(torch.float64)
     # host minmax_normalise: lo is always 0 (zero diagonal), hi<=0 -> 0;
@@ -443,8 +447,14 @@ def _approx_merge(of, binary, hot_idx, valid_h, cspec, stats, *, n, h,
     M = torch.zeros((scap + 1, h), dtype=torch.float32, device=dev)
     M[hs, torch.arange(h, device=dev)] = 1.0
     M = M[:scap]
+    # with capture on, keep the inputs of the merge with the most groups
+    capture.keep_largest("clique_pair_edges", n_act0,
+                         lambda: (M.clone(), A.clone()))
     if use_kernels:
         X = clique_pair_edges(M, A)
+        capture.keep_largest(
+            "merge_density", n_act0,
+            lambda: (X.clone(), sizes.clone(), omega, gamma32))
         D = merge_density(X, sizes, omega, gamma32)
     else:
         X = clique_pair_edges_plain(M, A)

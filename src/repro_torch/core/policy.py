@@ -46,6 +46,7 @@ class RunResult:
     config: Any = None               # the policy's config object
     state: Any = None                # final host CacheState of the replay
     loop_stats: dict | None = None   # steps, syncs and split of the replay
+    shard_stats: dict | None = None  # per-shard totals of a sharded sweep point
 
     @property
     def total(self) -> float:

@@ -15,7 +15,11 @@ The device half of ``repro.core.engine_jax``:
   Python loop over steps; ``E`` and ``anchor`` are updated in place; the
   step branches only on host values, so the loop makes no device sync.
   Under per-server dt the anchor resolution and the pair expiries are
-  the kernels ``seg_running_argmax`` and ``seg_running_max``;
+  the kernels ``seg_running_argmax`` and ``seg_running_max``.  The state
+  may carry a leading axis of S scenario lanes (``E`` (S, n+1, m),
+  ``anchor`` (S, n+1), spec arrays with a leading S) that share the
+  schedule's event tensors: one scan prices S scenarios, as the
+  reference's ``jax.vmap`` with the schedule unbatched does;
 * :class:`TorchReplayEngine` and :func:`run_policy_torch` are the
   counterparts of ``JaxReplayEngine`` and ``run_policy_jax``.
 
@@ -122,6 +126,41 @@ def spec_to_device(spec: dict, device) -> dict:
     return out
 
 
+def lane_spec_to_device(spec: dict, device, laned: bool) -> dict:
+    """A spec in scenario-lane form on the device: per-scenario numbers
+    as (S, 1), per-server arrays as (S, m), tier tables as (S, 1, T), so
+    each broadcasts against (S, events) tensors.  ``laned=False`` reads an
+    unlaned spec as one lane (S = 1)."""
+    out = {}
+    for k, v in spec.items():
+        a = np.asarray(v, np.float64)
+        if not laned:
+            a = a[None]
+        if a.ndim == 1:
+            a = a[:, None]
+        elif k.startswith("tier_"):
+            a = a[:, None, :]
+        out[k] = torch.as_tensor(a, device=device)
+    return out
+
+
+def pad_spec_cols(spec: dict, ncol: int) -> dict:
+    """Pad the per-server spec arrays (``dt``, ``lam_j``, ``mu_j``) to a
+    layout's column count by repeating the last server (padded columns are
+    never gathered: every server index of a schedule is below m)."""
+    out = dict(spec)
+    for key in ("dt", "lam_j", "mu_j"):
+        a = np.asarray(spec[key])
+        w = ncol - a.shape[-1]
+        if a.ndim and w > 0:
+            out[key] = np.concatenate(
+                [a, np.repeat(a[..., -1:], w, axis=-1)], axis=-1)
+    return out
+
+
+# The cost hooks take an unlaned spec (Python floats, (m,) arrays; the
+# device CGM) or a lane spec (lane_spec_to_device): ``[..., j]`` gathers
+# the servers' prices per lane either way.
 def _transfer_hook(kind, spec, counts, sizes, j):
     if kind[0] == "table1":
         if kind[1]:  # paper_literal: Alg. 5 line 11 as written
@@ -133,25 +172,30 @@ def _transfer_hook(kind, spec, counts, sizes, j):
         v = sizes[:, None]
         seg = torch.clamp(
             torch.minimum(v, spec["tier_hi"]) - spec["tier_lo"], min=0.0)
-        return spec["lam_j"][j] * (seg * spec["tier_rates"]).sum(dim=-1)
+        return spec["lam_j"][..., j] * (seg * spec["tier_rates"]).sum(dim=-1)
     # heterogeneous
     disc = torch.where(
         counts > 1, (1.0 + (counts - 1.0) * spec["alpha"]) / counts, 1.0)
-    return spec["lam_j"][j] * sizes * disc
+    return spec["lam_j"][..., j] * sizes * disc
 
 
 def _rate_hook(kind, spec, counts, sizes, j):
     if kind[0] == "table1":
         return counts * spec["mu"]
-    return spec["mu_j"][j] * sizes
+    return spec["mu_j"][..., j] * sizes
+
+
+def fresh_state_arrays(n: int, m: int) -> tuple:
+    """Empty host state in the device layout: ``E`` (n+1, m) float64 zeros
+    and ``anchor`` (n+1,) int64 -1, the last row being the dump row."""
+    rows, cols = StateLayout.resolve(None).state_dims(n, m)
+    return np.zeros((rows, cols), np.float64), np.full(rows, -1, np.int64)
 
 
 def state_to_device(state: CacheState, n: int, device) -> tuple:
     """Host ``CacheState`` -> dense device arrays: ``E`` (n+1, m) float64,
     ``anchor`` (n+1,) int64, the last row being the dump row."""
-    rows, cols = StateLayout.resolve(None).state_dims(n, state.m)
-    E0 = np.zeros((rows, cols), np.float64)
-    a0 = np.full(rows, -1, np.int64)
+    E0, a0 = fresh_state_arrays(n, state.m)
     k = state.partition.k
     E0[:k] = state.E
     a0[:k] = state.anchor
@@ -179,32 +223,37 @@ def _install_step(E, anchor, x, dt, now: float):
     whose index moved are a compact row move (``inst_mov_*``); only the
     CHANGED cliques (``inst_chg_*``) pay the member-wise segment-min and
     the Alg.-1 seeding.  Every gather reads the pre-install state before
-    the first write.  Padding rows point at the dump row K.
+    the first write.  Padding rows point at the dump row K.  ``E`` (S,
+    K+1, m), ``anchor`` (S, K+1) and ``dt`` (S, m) carry scenario lanes
+    (the install records are shared); an unlaned ``E`` (K+1, m) is one
+    lane.
     """
+    if E.dim() == 2:
+        return _install_step(E[None], anchor[None], x, dt[None], now)
+    S, _, m = E.shape
     ncr = x["inst_chg_rows"].shape[0]
-    m = E.shape[1]
-    movE = E[x["inst_mov_src"]]                     # (nmv, m)
-    movA = anchor[x["inst_mov_src"]]
-    item_E = E[x["inst_chg_src"]]                   # (nci, m)
+    movE = E[:, x["inst_mov_src"]]                  # (S, nmv, m)
+    movA = anchor[:, x["inst_mov_src"]]
+    item_E = E[:, x["inst_chg_src"]]                # (S, nci, m)
     # segment_min over ncr segments: +inf where a segment is empty
-    min_E = torch.full((ncr, m), float("inf"), dtype=E.dtype,
+    min_E = torch.full((S, ncr, m), float("inf"), dtype=E.dtype,
                        device=E.device)
-    seg = x["inst_chg_seg"][:, None].expand(-1, m)
-    min_E.scatter_reduce_(0, seg, item_E, "amin", include_self=True)
+    seg = x["inst_chg_seg"][None, :, None].expand(S, -1, m)
+    min_E.scatter_reduce_(1, seg, item_E, "amin", include_self=True)
     ok = x["inst_chg_ok"]
     fresh = torch.where(ok[:, None] & (min_E > now), min_E, 0.0)
-    row_max = fresh.max(dim=1).values
-    anew = torch.where(row_max > 0.0, fresh.argmax(dim=1), -1)
+    row_max = fresh.max(dim=2).values               # (S, ncr)
+    anew = torch.where(row_max > 0.0, fresh.argmax(dim=2), -1)
     need = ok & (row_max <= 0.0) & x["inst_seed_ok"]
     sj = x["inst_seed_j"]
     col = torch.arange(m, dtype=_I64, device=E.device)
-    fresh = torch.where(need[:, None] & (col[None, :] == sj[:, None]),
-                        (now + dt[sj])[:, None], fresh)
+    fresh = torch.where(need[:, :, None] & (col[None, :] == sj[:, None]),
+                        (now + dt[:, sj])[:, :, None], fresh)
     anew = torch.where(need, sj, anew)
-    E[x["inst_mov_dst"]] = movE
-    anchor[x["inst_mov_dst"]] = movA
-    E[x["inst_chg_rows"]] = fresh
-    anchor[x["inst_chg_rows"]] = anew
+    E[:, x["inst_mov_dst"]] = movE
+    anchor[:, x["inst_mov_dst"]] = movA
+    E[:, x["inst_chg_rows"]] = fresh
+    anchor[:, x["inst_chg_rows"]] = anew
 
 
 def _seg_hooks(use_kernels: bool):
@@ -219,42 +268,50 @@ def _seg_hooks(use_kernels: bool):
 
 def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
                  const_dt, seg_max_fn, seg_argmax_fn, capture=None):
-    """One step of the replay scan: Alg. 5/6 over the step's events.
+    """One step of the replay scan: Alg. 5/6 over the step's events, for
+    every scenario lane at once.
 
-    ``E`` / ``anchor`` / ``acc`` are updated in place.  ``dt0`` is
-    ``dt[0]`` as a device scalar (a Python float divisor would make CUDA
-    multiply by its reciprocal).  Each f64 operation is its own PyTorch
-    op, so it rounds once, as numpy does: the state is float for float the
-    numpy engine's.  ``capture`` (a dict) receives the scans' inputs.
+    ``E`` (S, K+1, m) / ``anchor`` (S, K+1) / ``acc`` (S, 6) are updated
+    in place; the step's event tensors ``x`` are shared by the lanes;
+    ``spec`` is in lane form (:func:`lane_spec_to_device`), ``dt`` (S, m)
+    and ``dt0`` its first column (S, 1), a device tensor (a Python float
+    divisor would make CUDA multiply by its reciprocal).  Each f64
+    operation is its own PyTorch op, so it rounds once, as numpy does:
+    the state is float for float the numpy engine's.  ``capture`` (a
+    dict) receives the scans' inputs.
     """
-    K = E.shape[0] - 1
+    S, K1, m = E.shape
+    K = K1 - 1
+    Ef = E.view(S, K1 * m)                          # flat (clique, server)
     cl, j, t, val = x["ev_c"], x["ev_j"], x["ev_t"], x["val"]
-    dt_e = dt0 if const_dt else dt[j]
-    E_before = torch.where(x["first_cj"], E[cl, j], x["prev_cj_t"] + dt_e)
+    dt_e = dt0 if const_dt else dt[:, j]
+    E_before = torch.where(x["first_cj"], Ef[:, cl * m + j],
+                           x["prev_cj_t"] + dt_e)   # (S, ne)
 
     # --- anchor resolution ------------------------------------------------
     if const_dt:
-        a0 = anchor[cl]
+        a0 = anchor[:, cl]
         anchor_alive = torch.where(
             x["first_c"], (a0 == j) & (E_before > 0.0), x["prev_j"] == j)
     else:
-        first_cs = x["first_cs"]
-        e_val_s = x["t_s"] + dt[x["j_s"]]
+        first_cs, c_s, j_s = x["first_cs"], x["c_s"], x["j_s"]
+        e_val_s = x["t_s"] + dt[:, j_s]
         if capture is not None:
             capture["seg_running_argmax"] = (e_val_s.clone(), first_cs.clone())
-        v, bidx = seg_argmax_fn(e_val_s, first_cs)
+        v, bidx = seg_argmax_fn(e_val_s, first_cs)  # per lane
         bidx = bidx.to(_I64)
-        a0_s = anchor[x["c_s"]]
-        Eg = E[x["c_s"], a0_s.clamp(min=0)]         # in-range gather
+        a0_s = anchor[:, c_s]
+        Eg = Ef.gather(1, c_s * m + a0_s.clamp(min=0))   # in-range gather
         Ea0_s = torch.where(a0_s >= 0, Eg, float("-inf"))
         prev_v = torch.where(
             first_cs, float("-inf"),
-            torch.cat([v.new_full((1,), float("-inf")), v[:-1]]))
+            torch.cat([v.new_full((S, 1), float("-inf")), v[:, :-1]], dim=1))
         prev_b = torch.where(
-            first_cs, 0, torch.cat([bidx.new_zeros(1), bidx[:-1]]))
+            first_cs, 0, torch.cat([bidx.new_zeros((S, 1)), bidx[:, :-1]],
+                                   dim=1))
         inbatch = ~first_cs & (prev_v >= Ea0_s)
-        anchor_seen_s = torch.where(inbatch, x["j_s"][prev_b], a0_s)
-        anchor_seen = anchor_seen_s[x["inv_o_c"]]   # un-sort by gather
+        anchor_seen_s = torch.where(inbatch, j_s[prev_b], a0_s)
+        anchor_seen = anchor_seen_s[:, x["inv_o_c"]]    # un-sort by gather
         anchor_alive = (anchor_seen == j) & (E_before > 0.0)
 
     fresh = E_before > t
@@ -274,7 +331,7 @@ def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
     r = torch.where(r <= t, r + dt_e, r)
     e_eff = torch.where(fresh, E_before, torch.where(lapsed, r, t))
 
-    # --- costs (the cost model's batched hooks) ---------------------------
+    # --- costs (the cost model's batched hooks, priced per lane) ----------
     size = x["size"]
     csize = x["csize"] if "csize" in x else size
     rate_stored = _rate_hook(kind, spec, size, csize, j)
@@ -288,31 +345,32 @@ def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
     dur = torch.clamp((t + dt_e) - torch.maximum(e_eff, t), min=0.0)
     cval = (val & ~nokeep) if nokeep is not None else val
     cc = torch.where(cval, rate * dur, 0.0)
-    nm = miss.sum()
+    nm = miss.sum(dim=1)
     acc += torch.stack([
-        tc.sum(), cc.sum(), rent.sum(),
+        tc.sum(dim=1), cc.sum(dim=1), rent.sum(dim=1),
         nm.to(torch.float64), (val.sum() - nm).to(torch.float64),
-        torch.where(miss, size, 0.0).sum(),
-    ])
+        torch.where(miss, size, 0.0).sum(dim=1),
+    ], dim=1)
 
     # --- state update on the compacted segment-last arrays ----------------
     uc, uj, ac = x["upd_c"], x["upd_j"], x["anc_c"]
     if const_dt:
-        E[uc, uj] = x["upd_t"] + dt0
-        a_cur = anchor[ac]
-        aE = E[ac, a_cur.clamp(min=0)]              # POST-update E
+        Ef[:, uc * m + uj] = x["upd_t"] + dt0
+        a_cur = anchor[:, ac]
+        aE = Ef.gather(1, ac * m + a_cur.clamp(min=0))   # POST-update E
         upd = (a_cur < 0) | (x["anc_t"] + dt0 >= aE)
-        anchor[torch.where(upd, ac, K)] = x["anc_j"]
+        anchor.scatter_(1, torch.where(upd, ac, K),
+                        x["anc_j"].expand(S, -1))
     else:
-        e_cj_s = x["cj_t_s"] + dt[x["cj_j_s"]]
+        e_cj_s = x["cj_t_s"] + dt[:, x["cj_j_s"]]
         if capture is not None:
             capture["seg_running_max"] = (e_cj_s.clone(),
                                           x["first_cjs"].clone())
         vmax = seg_max_fn(e_cj_s, x["first_cjs"])
-        E[uc, uj] = vmax[x["pos_u"]]
+        Ef[:, uc * m + uj] = vmax[:, x["pos_u"]]
         pa = x["pos_a"]
-        win = v[pa] >= Ea0_s[pa]
-        anchor[ac] = torch.where(win, x["j_s"][bidx[pa]], a0_s[pa])
+        win = v[:, pa] >= Ea0_s[:, pa]
+        anchor[:, ac] = torch.where(win, j_s[bidx[:, pa]], a0_s[:, pa])
 
 
 def schedule_to_device(schedule, device) -> dict:
@@ -335,6 +393,13 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
     ``(E, anchor, acc)``, all on that device (``E`` and ``anchor`` are
     updated in place).
 
+    ``E`` (n+1, m) / ``anchor`` (n+1,) with an unlaned ``spec`` give
+    ``acc`` (6,).  With a leading axis of S scenario lanes, ``E`` (S, n+1,
+    m), ``anchor`` (S, n+1) and every spec entry with a leading S (numbers
+    (S,), per-server arrays (S, m)), the schedule's event tensors are
+    shared by the lanes and ``acc`` is (S, 6): lane s equals an unlaned
+    run under spec lane s.
+
     The step tensors go up once, before the loop.  Steps with neither
     events nor an install are skipped (the schedule pads its step count to
     a bucket; such steps write only the dump row).  ``stats`` receives
@@ -347,9 +412,14 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
     from ..kernels import capture
 
     dev = E.device
-    spec_d = spec_to_device(spec, dev)
-    dt = spec_d["dt"]
-    dt0 = dt[0] if dt.numel() else None
+    laned = E.dim() == 3
+    if not (E.is_contiguous() and anchor.is_contiguous()):
+        raise ValueError("run_schedule needs a contiguous E and anchor")
+    E3, A2 = (E, anchor) if laned else (E[None], anchor[None])
+    S = E3.shape[0]
+    spec_d = lane_spec_to_device(spec, dev, laned)
+    dt = spec_d["dt"]                               # (S, m)
+    dt0 = dt[:, :1]
     seg_max_fn, seg_argmax_fn = _seg_hooks(use_kernels)
     xs = schedule_to_device(schedule, dev)
     inst = np.asarray(schedule.xs["inst"])
@@ -357,7 +427,7 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
     n_ev = np.asarray(schedule.xs["val"]).sum(axis=1)
     live = (n_ev > 0) | inst
     widest = int(np.argmax(n_ev)) if capture.INPUTS is not None else -1
-    acc = torch.zeros(N_ACC, dtype=torch.float64, device=dev)
+    acc = torch.zeros((S, N_ACC), dtype=torch.float64, device=dev)
     steps = installs = 0
     seen: dict = {}
     check = check_syncs and dev.type == "cuda"
@@ -368,9 +438,9 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
         for b in np.nonzero(live)[0].tolist():
             x = {k: v[b] for k, v in xs.items()}
             if inst[b]:
-                _install_step(E, anchor, x, dt, float(now[b]))
+                _install_step(E3, A2, x, dt, float(now[b]))
                 installs += 1
-            _replay_step(E, anchor, acc, x, spec_d, dt, dt0, kind=statics,
+            _replay_step(E3, A2, acc, x, spec_d, dt, dt0, kind=statics,
                          charge=charge, const_dt=schedule.const_dt,
                          seg_max_fn=seg_max_fn, seg_argmax_fn=seg_argmax_fn,
                          capture=seen if b == widest else None)
@@ -379,10 +449,77 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
         if check:
             torch.cuda.set_sync_debug_mode(mode)
     for name, inputs in seen.items():
-        capture.keep_largest(name, int(n_ev[widest]), lambda: inputs)
+        capture.keep_largest(name, S * int(n_ev[widest]), lambda: inputs)
     if stats is not None:
-        stats.update(steps=steps, installs=installs, sync_scan=0)
-    return E, anchor, acc
+        stats.update(steps=steps, installs=installs, sync_scan=0, lanes=S)
+    return E, anchor, (acc if laned else acc[0])
+
+
+def build_host_schedule(partition0, trace, clique_generator, t_cg, *,
+                        model, env, lookup, batch_size=None,
+                        seed_new_cliques: bool = True, layout=None,
+                        use_kernels: bool = True, next_cg0=None,
+                        win_prefix=None, progress=None) -> tuple:
+    """One host schedule: clique generation on the host every ``t_cg`` by
+    ``clique_generator`` (a policy's ``on_window``, its CRM hooks wired to
+    the lookup's device), items -> cliques through ``lookup`` (a
+    :class:`~repro_torch.kernels.packed_lookup.CliqueLookup`).  Returns
+    ``(schedule, stats)``: the build's seconds, the clique generation's
+    and the lookups'."""
+    from .schedule import build_schedule
+
+    pol = getattr(clique_generator, "__self__", None)
+    wire = getattr(pol, "wire_kernels", None)
+    if t_cg is not None and wire is not None:
+        wire(lookup.device, use_kernels)
+    t0 = time.perf_counter()
+    cg0 = getattr(pol, "cg_seconds", 0.0)
+    lookup.use_kernel = use_kernels
+    look0 = lookup.stats()
+    with _span("host.schedule"):
+        schedule = build_schedule(
+            partition0, trace, clique_generator, t_cg, model=model, env=env,
+            batch_size=batch_size, seed_new_cliques=seed_new_cliques,
+            next_cg0=next_cg0, win_prefix=win_prefix, lookup=lookup,
+            progress=progress, layout=layout)
+    wall = time.perf_counter() - t0
+    look = {key: v - look0[key] for key, v in lookup.stats().items()}
+    cg_s = getattr(pol, "cg_seconds", 0.0) - cg0
+    return schedule, dict(schedule_s=wall, cg_s=cg_s, **look,
+                          schedule_rest_s=wall - cg_s - look["lookup_s"])
+
+
+def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,
+                 device, state: CacheState | None = None,
+                 charge="requested", use_kernels: bool = True) -> tuple:
+    """Replay ``schedule`` once under each pricing spec of ``specs``: the
+    scenario lanes of one laned :func:`run_schedule`, every lane starting
+    from ``state`` (a fresh state when None).  Lane s's accumulator is
+    folded into ``costs[s]``.  Returns ``(states, stats)``: the lanes'
+    final :class:`~repro_torch.core.engine.CacheState` and the scan's
+    step counts and seconds."""
+    t0 = time.perf_counter()
+    S = len(specs)
+    part = schedule.final_partition
+    if state is None:
+        state = CacheState.fresh(schedule.partition0, schedule.m)
+    stats: dict = {}
+    with _span("host.scan"):
+        E0, a0 = state_to_device(state, schedule.n, device)
+        spec = {k: np.stack([sp[k] for sp in specs]) for k in specs[0]}
+        E, anchor, acc = run_schedule(
+            schedule, spec, statics, E0.expand(S, -1, -1).contiguous(),
+            a0.expand(S, -1).contiguous(), charge=charge,
+            use_kernels=use_kernels, stats=stats)
+        acc = acc.cpu().numpy()
+        E = E[:, :part.k].cpu().numpy()
+        anchor = anchor[:, :part.k].cpu().numpy()
+    for lane, c in enumerate(costs):
+        apply_acc(c, schedule, acc[lane])
+    states = [CacheState.from_device(part, E[lane], anchor[lane], schedule.m)
+              for lane in range(S)]
+    stats["scan_s"] = time.perf_counter() - t0
+    return states, stats
 
 
 class TorchReplayEngine:
@@ -434,10 +571,10 @@ class TorchReplayEngine:
         """
         from .cgm import replay_cgm
         from .cgm_schedule import wants_device_cgm
-        from .schedule import build_schedule, pad_schedule, schedule_dims
+        from .schedule import pad_schedule, schedule_dims
 
         eng = self.engine
-        keep_fn = pol = None
+        keep_fn = None
         if clique_generator is not None and t_cg is not None:
             pol = getattr(clique_generator, "__self__", None)
             keep_fn = getattr(pol, "item_keep", None)
@@ -446,21 +583,12 @@ class TorchReplayEngine:
                     self, pol, trace, t_cg=t_cg, batch_size=batch_size,
                     next_cg0=next_cg0, win_prefix=win_prefix,
                     use_kernels=use_kernels)
-            wire = getattr(pol, "wire_kernels", None)
-            if wire is not None:
-                wire(self.device, use_kernels)
-        t0 = time.perf_counter()
-        cg0 = getattr(pol, "cg_seconds", 0.0)
-        self.lookup.use_kernel = use_kernels
-        look0 = self.lookup.stats()
-        with _span("host.schedule"):
-            schedule = build_schedule(
-                eng.state.partition, trace, clique_generator, t_cg,
-                model=eng.model, env=eng.env, batch_size=batch_size,
-                seed_new_cliques=eng.seed_new_cliques,
-                next_cg0=next_cg0, win_prefix=win_prefix,
-                lookup=self.lookup, progress=progress, layout=self.layout,
-            )
+        schedule, stats = build_host_schedule(
+            eng.state.partition, trace, clique_generator, t_cg,
+            model=eng.model, env=eng.env, lookup=self.lookup,
+            batch_size=batch_size, seed_new_cliques=eng.seed_new_cliques,
+            layout=self.layout, use_kernels=use_kernels, next_cg0=next_cg0,
+            win_prefix=win_prefix, progress=progress)
         # shape ratchet: pad every chunk's tensors up to the largest dims
         # this engine has seen, as the reference does for its compiles
         dims = schedule_dims(schedule)
@@ -470,35 +598,17 @@ class TorchReplayEngine:
         self._dims = dims
         schedule = pad_schedule(schedule, dims)
         self.last_schedule = schedule
-        t1 = time.perf_counter()
-        stats: dict = {}
-        part = schedule.final_partition
-        with _span("host.scan"):
-            E0, a0 = state_to_device(eng.state, schedule.n, self.device)
-            E, anchor, acc = run_schedule(
-                schedule, self._spec, self._statics, E0, a0,
-                charge=eng.caching_charge, use_kernels=use_kernels,
-                stats=stats)
-            acc = acc.cpu().numpy()
-            eng.state = CacheState.from_device(
-                part, E[:part.k].cpu().numpy(),
-                anchor[:part.k].cpu().numpy(), eng.m)
-        t2 = time.perf_counter()
-        eng._set_partition_caches(part)
-        apply_acc(eng.costs, schedule, acc)
+        (eng.state,), scan = replay_lanes(
+            schedule, [self._spec], self._statics, [eng.costs],
+            device=self.device, state=eng.state, charge=eng.caching_charge,
+            use_kernels=use_kernels)
+        eng._set_partition_caches(schedule.final_partition)
         if keep_fn is not None:
             # boundary evictions already ran on the device; this only
             # aligns the host engine's mask
             eng.set_item_keep(keep_fn())
-        look = {key: v - look0[key]
-                for key, v in self.lookup.stats().items()}
-        cg_s = getattr(pol, "cg_seconds", 0.0) - cg0
-        stats.update(
-            path="host_schedule", nb=schedule.nb, ne=schedule.ne,
-            const_dt=schedule.const_dt, sync_final=3,
-            schedule_s=t1 - t0, cg_s=cg_s, **look,
-            schedule_rest_s=t1 - t0 - cg_s - look["lookup_s"],
-            scan_s=t2 - t1)
+        stats.update(path="host_schedule", nb=schedule.nb, ne=schedule.ne,
+                     const_dt=schedule.const_dt, sync_final=3, **scan)
         self.last_stats = stats
         return eng.costs
 

@@ -22,8 +22,8 @@ class StateLayout:
     def __post_init__(self):
         if self.kind in ("bucketed", "row_sharded"):
             raise NotImplementedError(
-                f"state layout {self.kind!r} is not ported yet; the port "
-                "runs the dense layout only")
+                f"state layout {self.kind!r} is not ported yet (ROADMAP "
+                "queue 1, item 3); the port runs the dense layout only")
         if self.kind not in LAYOUT_KINDS:
             raise ValueError(
                 f"unknown state layout {self.kind!r}; choose from "

@@ -1,0 +1,393 @@
+"""Multi-scenario sweep engine over the device replay (port of ``repro.core.sweep``).
+
+The paper's cost curves (Figs. 5-10) sweep hyperparameter x cost-model x
+trace grids.  :class:`SweepEngine` makes the SCENARIO the batch axis:
+
+1. every grid point is a :class:`SweepPoint` (policy + trace + pricing
+   scenario);
+2. points that share (trace, clique-generation hyperparameters, batch
+   size) share ONE host-built
+   :class:`~repro_torch.core.schedule.ReplaySchedule`: an alpha sweep
+   runs clique generation once, not once per alpha, because the partition
+   trajectory depends on the trace and the CGM knobs only, never on prices
+   or cache state;
+3. the scenarios that share a schedule are the lanes of ONE
+   :func:`~repro_torch.core.replay.run_schedule` call: cost spec and state
+   carry a leading lane axis, the schedule's event tensors are shared
+   (the reference's ``jax.vmap`` with ``in_axes=(0, 0, None)``);
+4. each point comes back as the :class:`~repro_torch.core.policy.RunResult`
+   the serial ``run_policy`` returns, cost for cost at 1e-9, with its final
+   :class:`~repro_torch.core.engine.CacheState`.
+
+Backends: ``"torch"`` (default) is that lane-stacked replay on ``device``
+(the reference's ``"jax"``); ``"serial"`` runs one port ``run_policy`` per
+point on the same device (the reference's ``"numpy"``): the baseline a
+sweep is timed against.
+
+What this port runs differently from the reference, each point still
+giving its serial result:
+
+* the device-CGM super-groups (AKPC points that differ only in
+  theta / gamma / omega / top_frac, vmapped clique generation in the
+  reference) run one point at a time through the device clique
+  generation (``replay_cgm``);
+* a trace-shard point replays each shard as a scenario group of its own
+  (one schedule per shard), merged by :func:`_merge_shard_results`; the
+  reference stacks the shards as lanes of one call.
+
+The mesh and the ``bucketed`` / ``row_sharded`` layouts are refused
+(ROADMAP queue 1, item 3), and so is a cost model without a device
+formula: the port never falls back to another backend or to the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+from typing import Any, Sequence
+
+import numpy as np
+
+from .cliques import CliquePartition
+from .cost import CacheEnvironment, CostBreakdown, get_cost_model
+from .policy import RunResult, get_policy
+from .replay import (
+    build_host_schedule,
+    cost_spec,
+    pad_spec_cols,
+    replay_lanes,
+    resolve_device,
+    run_policy_torch,
+)
+from .state_layout import StateLayout
+
+#: registry policies whose clique-generation trajectory is fully determined
+#: by (trace, t_cg, top_frac, top_frac_of, theta, gamma, omega, split/merge
+#: flags): the key under which SweepEngine shares schedules.  Other
+#: policies always get a private schedule.
+SHAREABLE_POLICIES = (
+    "no_packing", "packcache", "dp_greedy",
+    "akpc", "akpc_no_acm", "akpc_base",
+)
+#: what the refusals name
+_ROADMAP = "ROADMAP queue 1, item 3"
+
+
+@dataclasses.dataclass
+class SweepPoint:
+    """One grid point: a registered policy replayed over one scenario.
+
+    ``policy_kwargs`` go to :func:`~repro_torch.core.policy.get_policy`
+    verbatim (``params``, ``t_cg``, ``top_frac``, ``env``, ``cost_model``,
+    ...); ``tag`` is a caller label (results come back in input order).
+
+    ``trace`` may also be a SEQUENCE of traces, the trace-shard axis:
+    shards of one long trace, or per-seed replicas of one workload.  The
+    point then replays every shard and comes back as ONE RunResult with
+    the per-shard costs merged and ``shard_stats`` holding the mean +- CI
+    of the per-shard totals.  All shards must share (n, m).
+    """
+
+    policy: str
+    trace: Any
+    policy_kwargs: dict = dataclasses.field(default_factory=dict)
+    tag: str = ""
+
+
+def _shards_of(trace) -> tuple | None:
+    """The shard tuple of a sharded ``SweepPoint.trace`` (else None)."""
+    if isinstance(trace, (list, tuple)):
+        shards = tuple(trace)
+        if not shards:
+            raise ValueError("SweepPoint.trace sequence is empty")
+        n, m = shards[0].n, shards[0].m
+        for tr in shards[1:]:
+            if tr.n != n or tr.m != m:
+                raise ValueError(
+                    "trace shards must share the catalog/server shape "
+                    f"(n, m): got ({n}, {m}) vs ({tr.n}, {tr.m})")
+        return shards
+    return None
+
+
+def _shard_stats(totals: list) -> dict:
+    """mean +- 95% CI (normal approx) of the per-shard total costs."""
+    a = np.asarray(totals, np.float64)
+    std = float(a.std(ddof=1)) if a.size > 1 else 0.0
+    return {
+        "n": int(a.size),
+        "totals": [float(t) for t in totals],
+        "mean": float(a.mean()),
+        "std": std,
+        "ci95": 1.96 * std / float(np.sqrt(a.size)),
+    }
+
+
+def _merge_shard_results(subs: list) -> RunResult:
+    """Fold per-shard RunResults into one."""
+    merged = dataclasses.replace(subs[0].costs)
+    for r in subs[1:]:
+        merged.merge(r.costs)
+    return dataclasses.replace(
+        subs[0], costs=merged,
+        cg_seconds=sum(r.cg_seconds for r in subs),
+        wall_seconds=sum(r.wall_seconds for r in subs),
+        shard_stats=_shard_stats([r.costs.total for r in subs]))
+
+
+def _cgm_key(policy) -> tuple:
+    """The clique-generation-relevant knobs of a registry policy."""
+    p = policy.params
+    cfg = getattr(policy, "config", None)
+    if cfg is not None:                     # AKPCPolicy variants
+        return (cfg.t_cg, cfg.top_frac, cfg.top_frac_of, cfg.enable_split,
+                cfg.enable_approx_merge, cfg.params.theta, cfg.params.gamma,
+                cfg.params.omega)
+    user_part = getattr(policy, "_user_partition", None)
+    return (policy.t_cg, getattr(policy, "top_frac", None),
+            getattr(policy, "top_frac_of", None), p.theta,
+            None if user_part is None else id(user_part))
+
+
+class SweepEngine:
+    """Replay a grid of scenarios with one lane-stacked scan per group."""
+
+    def __init__(self, backend: str = "torch", mesh=None,
+                 layout: StateLayout | str | None = None, device=None):
+        if backend not in ("torch", "serial"):
+            raise ValueError(f"unknown sweep backend {backend!r}; the port "
+                             "has 'torch' and 'serial'")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"a sweep mesh is not ported yet ({_ROADMAP}); the port "
+                "sweeps on one card")
+        self.backend = backend
+        self.layout = StateLayout.resolve(layout)
+        self.device = resolve_device(device)
+        #: wall seconds of the most recent :meth:`run` (schedules + device)
+        self.last_wall = 0.0
+        #: host schedules the most recent run built
+        self.last_n_schedules = 0
+        #: the most recent run's schedule builds and laned scans (seconds)
+        self.last_stats: dict = {}
+
+    # ------------------------------------------------------------------
+    def run(self, points: Sequence[SweepPoint]) -> list[RunResult]:
+        t0 = _time.perf_counter()
+        if self.backend == "serial":
+            out = [self._run_serial(pt) for pt in points]
+            self.last_n_schedules = len(points)
+        else:
+            out = self._run_lanes(points)
+        self.last_wall = _time.perf_counter() - t0
+        return out
+
+    def _run_policy(self, pt: SweepPoint, trace) -> RunResult:
+        return run_policy_torch(get_policy(pt.policy, **pt.policy_kwargs),
+                                trace, device=self.device)
+
+    def _run_serial(self, pt: SweepPoint) -> RunResult:
+        shards = _shards_of(pt.trace)
+        if shards is not None:
+            return _merge_shard_results(
+                [self._run_policy(pt, tr) for tr in shards])
+        return self._run_policy(pt, pt.trace)
+
+    # ------------------------------------------------------------------
+    def _prepare(self, pt: SweepPoint) -> dict:
+        """Policy, pricing spec and schedule-share key of one point."""
+        shards = _shards_of(pt.trace)
+        tr0 = shards[0] if shards is not None else pt.trace
+        policy = get_policy(pt.policy, **pt.policy_kwargs)
+        policy.bind(tr0.n, tr0.m)
+        env = CacheEnvironment.resolve(
+            getattr(policy, "env", None), tr0, policy.params)
+        model = get_cost_model(getattr(policy, "cost_model", "table1"), env)
+        spec, statics = cost_spec(model, env)
+        dt = spec["dt"]
+        const_dt = env.m == 0 or bool((dt == dt[0]).all())
+        ncol = self.layout.state_cols(env.m)
+        if ncol != env.m:
+            spec = pad_spec_cols(spec, ncol)
+        bs = policy.batch_size              # as run_policy_torch reads it
+        seed = getattr(policy, "seed_new_cliques", True)
+        sizes_fp = (None if not model.uses_sizes
+                    else (id(env.item_sizes)
+                          if env.item_sizes is not None else "unit"))
+        if pt.policy in SHAREABLE_POLICIES:
+            tid = (tuple(id(tr) for tr in shards)
+                   if shards is not None else id(pt.trace))
+            skey = (tid, pt.policy, _cgm_key(policy), bs, const_dt,
+                    model.uses_sizes, sizes_fp, seed)
+        else:
+            skey = object()                 # never shared
+        return {"pt": pt, "policy": policy, "spec": spec, "statics": statics,
+                "skey": skey, "sizes_fp": sizes_fp, "model": model,
+                "env": env, "bs": bs, "seed": seed, "shards": shards,
+                "charge": getattr(policy, "caching_charge", "requested")}
+
+    def _device_cgm_points(self, prepared) -> set:
+        """The points the reference replays in device-CGM super-groups:
+        AKPC points of one trace and pricing that the device clique
+        generation admits and that differ in at least two CGM keys.  The
+        port replays each through ``replay_cgm``."""
+        from .cgm_schedule import wants_device_cgm
+
+        groups: dict = {}
+        for i, pr in enumerate(prepared):
+            pt, policy = pr["pt"], pr["policy"]
+            cfg = getattr(policy, "config", None)
+            if (pr["shards"] is not None
+                    or pt.policy not in SHAREABLE_POLICIES or cfg is None
+                    or not self.layout.supports_device_cgm(
+                        pt.trace.n, pt.trace.m)):
+                continue
+            dkey = (id(pt.trace), cfg.t_cg, pr["bs"], pr["statics"],
+                    pr["charge"], pr["model"].uses_sizes, pr["sizes_fp"],
+                    pr["seed"], cfg.enable_split, cfg.enable_approx_merge)
+            groups.setdefault(dkey, []).append(i)
+        out = set()
+        for idxs in groups.values():
+            # grouping before the admission test gives the reference's
+            # groups (the test only drops points), and spares a group
+            # with one CGM key the test, which walks the whole trace
+            if len({_cgm_key(prepared[i]["policy"]) for i in idxs}) < 2:
+                continue
+            ok = [i for i in idxs if wants_device_cgm(
+                prepared[i]["policy"], prepared[i]["pt"].trace,
+                prepared[i]["model"])]
+            if len({_cgm_key(prepared[i]["policy"]) for i in ok}) >= 2:
+                out.update(ok)
+        return out
+
+    def _build(self, policy, trace, pr) -> dict:
+        """One host schedule (clique generation on the host, lookups and
+        CGM hooks on the card), with the policy's window bookkeeping."""
+        from ..kernels.packed_lookup import CliqueLookup
+
+        part0 = policy.initial_partition(trace)
+        if part0 is None:
+            part0 = CliquePartition.singletons(trace.n)
+        gen = policy.on_window if policy.t_cg is not None else None
+        schedule, stats = build_host_schedule(
+            part0, trace, gen, policy.t_cg, model=pr["model"], env=pr["env"],
+            lookup=CliqueLookup(self.device), batch_size=pr["bs"],
+            seed_new_cliques=pr["seed"], layout=self.layout)
+        self.last_stats["builds"].append({
+            "policy": policy.name, "schedule_s": stats["schedule_s"],
+            "cg_s": stats["cg_s"], "lookup_s": stats["lookup_s"]})
+        return {
+            "schedule": schedule,
+            "n_windows": getattr(policy, "n_windows", 0),
+            "cg_seconds": getattr(policy, "cg_seconds", 0.0),
+            "size_history": list(getattr(policy, "size_history", [])),
+            "clique_sizes": schedule.final_partition.sizes(),
+        }
+
+    def _replay_group(self, rec, lanes: list, statics, charge) -> list:
+        """One laned ``run_schedule`` of a shared schedule under the specs
+        of ``lanes`` (prepared points); one RunResult per lane."""
+        schedule = rec["schedule"]
+        S = len(lanes)
+        costs = [CostBreakdown(model=statics[0]) for _ in lanes]
+        states, stats = replay_lanes(
+            schedule, [pr["spec"] for pr in lanes], statics, costs,
+            device=self.device, charge=charge)
+        self.last_stats["groups"].append(
+            {"lanes": S, "steps": stats["steps"], "nb": schedule.nb,
+             "ne": schedule.ne, "const_dt": schedule.const_dt,
+             "scan_s": stats["scan_s"]})
+        return [RunResult(
+            policy=pr["policy"].name,
+            costs=c,
+            clique_sizes=rec["clique_sizes"],
+            size_history=list(rec["size_history"]),
+            n_windows=rec["n_windows"],
+            cg_seconds=rec["cg_seconds"],
+            wall_seconds=stats["scan_s"] / S,
+            config=getattr(pr["policy"], "config", None),
+            state=st,
+            loop_stats={"path": "sweep_lanes", **stats},
+        ) for pr, c, st in zip(lanes, costs, states)]
+
+    def _run_lanes(self, points) -> list[RunResult]:
+        from .schedule import pad_schedule, schedule_dims
+
+        self.last_stats = {"groups": [], "builds": []}
+        prepared = [self._prepare(pt) for pt in points]
+        on_device = self._device_cgm_points(prepared)
+        groups: dict = {}
+        sh_groups: dict = {}
+        for i, pr in enumerate(prepared):
+            if i in on_device:
+                continue
+            dst = sh_groups if pr["shards"] is not None else groups
+            dst.setdefault((pr["skey"], pr["statics"], pr["charge"]),
+                           []).append(i)
+
+        # -- one host schedule per distinct share key -----------------------
+        schedules: dict = {}
+        for (skey, _statics, _charge), idxs in groups.items():
+            if skey in schedules:
+                continue
+            g0 = prepared[idxs[0]]
+            schedules[skey] = self._build(g0["policy"], g0["pt"].trace, g0)
+
+        # -- pad each (state geometry, dt mode, sizes) cohort to shared dims
+        cohorts: dict = {}
+        for rec in schedules.values():
+            s = rec["schedule"]
+            cohorts.setdefault(
+                (s.state_rows, s.state_cols, s.const_dt, s.uses_sizes),
+                []).append(rec)
+        for recs in cohorts.values():
+            dims_list = [schedule_dims(r["schedule"]) for r in recs]
+            dims = {k: max(d[k] for d in dims_list) for k in dims_list[0]}
+            for r, d0 in zip(recs, dims_list):
+                if d0 != dims:
+                    r["schedule"] = pad_schedule(r["schedule"], dims)
+
+        results: list[RunResult | None] = [None] * len(prepared)
+        # -- one laned scan per group ---------------------------------------
+        for (skey, statics, charge), idxs in groups.items():
+            res = self._replay_group(schedules[skey],
+                                     [prepared[i] for i in idxs],
+                                     statics, charge)
+            for i, r in zip(idxs, res):
+                results[i] = r
+
+        # -- trace shards: each shard a scenario group of its own -----------
+        n_shard_schedules = 0
+        for (skey, statics, charge), idxs in sh_groups.items():
+            g0 = prepared[idxs[0]]
+            policy = g0["policy"]
+            per_shard = []
+            for tr in g0["shards"]:
+                policy.bind(tr.n, tr.m)       # fresh CGM state per shard
+                rec = self._build(policy, tr, g0)
+                per_shard.append(self._replay_group(
+                    rec, [prepared[i] for i in idxs], statics, charge))
+            n_shard_schedules += len(per_shard)
+            for lane, i in enumerate(idxs):
+                results[i] = _merge_shard_results(
+                    [subs[lane] for subs in per_shard])
+
+        # -- device-CGM points: the device clique generation, one by one ----
+        for i in sorted(on_device):
+            pt = prepared[i]["pt"]
+            results[i] = self._run_policy(pt, pt.trace)
+        self.last_n_schedules = (len(schedules) + n_shard_schedules
+                                 + len(on_device))
+        self.last_stats.update(schedules=len(schedules),
+                               shard_schedules=n_shard_schedules,
+                               device_cgm_points=len(on_device))
+        return results  # type: ignore[return-value]
+
+
+def sweep_points(grid: Sequence[dict], backend: str = "torch", mesh=None,
+                 layout: StateLayout | str | None = None,
+                 device=None) -> list[RunResult]:
+    """One-shot convenience: each grid entry is SweepPoint kwargs."""
+    pts = [SweepPoint(**g) for g in grid]
+    eng = SweepEngine(backend=backend, mesh=mesh, layout=layout,
+                      device=device)
+    return eng.run(pts)

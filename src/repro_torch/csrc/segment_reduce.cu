@@ -13,7 +13,12 @@
 // microsecond at 3.35 TB/s.  The work is a scan with a carried index, so a
 // single block does it and the launch, not the card, sets the time.
 //
-// Design: one block of 1024 threads per call.  Each thread walks one
+// Scenario lanes: a sweep replays S pricing scenarios over one shared
+// schedule, so under per-server dt each lane has its own values over the
+// same start flags: values (S, L), starts (L,).  Block y takes lane y; the
+// lanes are independent scans, each exactly the one-lane scan.
+//
+// Design: one block of 1024 threads per lane.  Each thread walks one
 // contiguous chunk of ceil(L / 1024) positions sequentially and keeps a
 // summary (value, index, whether a segment starts inside the chunk).  The
 // block scans the 1024 summaries in shared memory (ten doubling rounds), and
@@ -61,6 +66,11 @@ seg_scan_kernel(const double* __restrict__ values,
                 const unsigned char* __restrict__ starts,
                 double* __restrict__ out_v, int* __restrict__ out_i, int L,
                 int chunk) {
+  // this block's lane: its own values and outputs, the shared start flags
+  const long long lane = static_cast<long long>(blockIdx.y) * L;
+  values += lane;
+  out_v += lane;
+  if (kIndex) out_i += lane;
   __shared__ double sv[kThreads];
   __shared__ int si[kThreads];
   __shared__ unsigned char ss[kThreads];
@@ -123,35 +133,39 @@ seg_scan_kernel(const double* __restrict__ values,
 }
 
 int launch(const double* values, const unsigned char* starts, double* out_v,
-           int* out_i, int L, cudaStream_t stream) {
-  if (L <= 0) return static_cast<int>(cudaGetLastError());
+           int* out_i, int S, int L, cudaStream_t stream) {
+  if (L <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   const int chunk = (L + kThreads - 1) / kThreads;
+  const dim3 grid(1, S);
   if (out_i != nullptr) {
-    seg_scan_kernel<true><<<1, kThreads, 0, stream>>>(values, starts, out_v,
-                                                      out_i, L, chunk);
+    seg_scan_kernel<true><<<grid, kThreads, 0, stream>>>(values, starts, out_v,
+                                                         out_i, L, chunk);
   } else {
-    seg_scan_kernel<false><<<1, kThreads, 0, stream>>>(values, starts, out_v,
-                                                       nullptr, L, chunk);
+    seg_scan_kernel<false><<<grid, kThreads, 0, stream>>>(values, starts,
+                                                          out_v, nullptr, L,
+                                                          chunk);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// values (L,) float64, starts (L,) bool (one byte each) -> out_v (L,) float64
+// values (S, L) float64, starts (L,) bool (one byte each), shared by the S
+// lanes -> out_v (S, L) float64
 extern "C" int seg_running_max_launch(const double* values,
                                       const unsigned char* starts,
-                                      double* out_v, int L,
+                                      double* out_v, int S, int L,
                                       cudaStream_t stream) {
-  return launch(values, starts, out_v, nullptr, L, stream);
+  return launch(values, starts, out_v, nullptr, S, L, stream);
 }
 
-// the same, plus out_i (L,) int32: the latest index attaining the max
+// the same, plus out_i (S, L) int32: the latest index in the lane attaining
+// the max
 extern "C" int seg_running_argmax_launch(const double* values,
                                          const unsigned char* starts,
-                                         double* out_v, int* out_i, int L,
-                                         cudaStream_t stream) {
-  return launch(values, starts, out_v, out_i, L, stream);
+                                         double* out_v, int* out_i, int S,
+                                         int L, cudaStream_t stream) {
+  return launch(values, starts, out_v, out_i, S, L, stream);
 }
 
 REPRO_EXPORT_ERROR_STRING(segment_reduce)

@@ -8,7 +8,12 @@ is no fallback from one to the other.  The sources are built at first use
 from .clique_density import clique_pair_edges, clique_pair_edges_plain
 from .crm_update import crm_update, crm_update_plain
 from .merge_step import merge_density, merge_density_plain
-from .packed_lookup import packed_lookup, packed_lookup_plain
+from .packed_lookup import (
+    packed_lookup,
+    packed_lookup_plain,
+    unpacked_lookup,
+    unpacked_lookup_plain,
+)
 from .segment_reduce import (
     seg_running_argmax,
     seg_running_argmax_plain,
@@ -24,6 +29,7 @@ KERNELS = {
     "seg_running_argmax": seg_running_argmax,
     "seg_running_max": seg_running_max,
     "packed_lookup": packed_lookup,
+    "unpacked_lookup": unpacked_lookup,
 }
 
 __all__ = [
@@ -40,4 +46,6 @@ __all__ = [
     "seg_running_argmax_plain",
     "seg_running_max",
     "seg_running_max_plain",
+    "unpacked_lookup",
+    "unpacked_lookup_plain",
 ]

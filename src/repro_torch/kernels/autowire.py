@@ -29,6 +29,13 @@ def default_cgm_hooks(device, use_kernels: bool = True
     dev = torch.device(device)
     if dev.type != "cuda":
         return None, None
+    return cgm_hooks(dev, use_kernels)
+
+
+def cgm_hooks(device, use_kernels: bool = True) -> tuple[Callable, Callable]:
+    """(crm_matmul, pair_edges) on ``device``, host numpy in and out.  On
+    CPU tensors the wrappers run their plain versions."""
+    dev = torch.device(device)
     mm_fn = crm_update if use_kernels else crm_update_plain
     pe_fn = clique_pair_edges if use_kernels else clique_pair_edges_plain
 

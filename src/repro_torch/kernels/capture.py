@@ -2,11 +2,15 @@
 plain version at the shapes the replay itself gives it.
 
 Off unless a caller sets :data:`INPUTS` to a dict (``chip_smoke.py`` does,
-around one replay).  Then the kernels' call sites on the host-schedule
-path keep their largest inputs in it, by kernel name: the widest scan
-step's values and start flags, the largest lookup's table and ids, and
-the largest incidence ``H`` and membership/CRM pair ``M``, ``A`` of the
-host clique generation.  When off, a call site pays one ``is None`` test.
+around one replay).  Then the kernels' call sites keep their largest
+inputs in it, by kernel name.  On the host-schedule path: the widest scan
+step's values and start flags, the largest lookup's table and ids (host
+numpy), and the largest incidence ``H`` and membership/CRM pair ``M``,
+``A`` of the host clique generation.  On the device clique generation:
+the fullest window's incidence (a device tensor, the leading ``h``
+columns of its buffer, as the kernel gets it) and the inputs ``M``,
+``A`` and ``X``, sizes, omega, gamma of the merge with the most active
+groups.  When off, a call site pays one ``is None`` test.
 """
 from __future__ import annotations
 

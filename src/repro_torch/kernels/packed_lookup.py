@@ -1,18 +1,24 @@
-"""Packed-clique gather, and the replay's per-batch item -> clique lookup.
+"""Packed and unpacked gathers, and the replay's per-batch item -> clique lookup.
 
-The port of ``repro.kernels.packed_lookup`` (TPU kernel ``packed_lookup``,
-Pallas body ``_copy_kernel``): ``out[r] = table[ids[r]]`` for whole packed
-``(omega, d)`` rows.  :func:`packed_lookup` launches the hand-written CUDA
-kernel ``csrc/packed_lookup.cu`` for CUDA tensors and runs the plain
-version :func:`packed_lookup_plain` for CPU tensors; both copy bytes, so
-they agree bit for bit.
+The port of ``repro.kernels.packed_lookup``:
+
+* :func:`packed_lookup` (TPU kernel ``packed_lookup``, Pallas body
+  ``_copy_kernel``): ``out[r] = table[ids[r]]`` for whole packed
+  ``(omega, d)`` rows, one copy per request;
+* :func:`unpacked_lookup` (TPU kernel ``unpacked_lookup``, Pallas body
+  ``_copy_reshape_kernel``): the baseline, ``out[r, o] = items[ids[r, o]]``
+  for ``d``-wide item rows, one copy per (request, item).
+
+Each launches its hand-written CUDA kernel (``csrc/packed_lookup.cu``) for
+CUDA tensors and runs its plain version for CPU tensors; all of them copy
+bytes, so they agree bit for bit.  Both wrappers check the ids before a
+gather, since the kernels do not.
 
 :func:`clique_lookup` is the reference's routing of the replay's
 membership gather through ``packed_lookup`` (``clique_of`` as an
 ``(n, 1, 1)`` int32 table): host ids up, one gather, clique ids down.
 :class:`CliqueLookup` is that call as the replay's ``lookup`` hook on one
-device, with its round trips counted and timed.  The baseline
-``unpacked_lookup`` is not ported yet.
+device, with its round trips counted and timed.
 """
 from __future__ import annotations
 
@@ -26,8 +32,21 @@ from . import _build, capture
 
 
 def packed_lookup_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """The plain gather: ``table[ids]`` (raises on an id outside [0, C))."""
+    """The plain gather: ``table[ids]``."""
     return table[ids.to(torch.int64)]
+
+
+def unpacked_lookup_plain(items: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The plain row gather: ``items[ids]``, (R, omega) ids -> (R, omega, d)."""
+    return items[ids.to(torch.int64)]
+
+
+def _check_ids(name: str, ids: torch.Tensor, n: int) -> None:
+    """Raise unless every id lies in [0, n) (reads two values back)."""
+    if ids.numel():
+        lo, hi = torch.aminmax(ids)
+        if int(lo) < 0 or int(hi) >= n:
+            raise IndexError(f"{name} id outside [0, {n})")
 
 
 def packed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
@@ -35,11 +54,13 @@ def packed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
     """table (C, omega, d) any dtype; ids (R,) int32 -> (R, omega, d).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``packed_lookup.launches``).  The kernel does not check
-    the ids: unless the caller has (``ids_checked=True``), the wrapper
-    checks them against [0, C) on the device first, which costs a sync.
+    (counted in ``packed_lookup.launches``).  Unless the caller has
+    checked the ids (``ids_checked=True``), the wrapper checks them
+    against [0, C) first, which on the card costs a sync.
     """
     if table.device.type == "cpu" and ids.device.type == "cpu":
+        if not ids_checked:
+            _check_ids("packed_lookup", ids, table.shape[0])
         return packed_lookup_plain(table, ids)
     if table.device.type != "cuda" or ids.device != table.device:
         raise ValueError(
@@ -58,9 +79,7 @@ def packed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
     if R == 0 or row_bytes == 0:
         return out
     if not ids_checked:
-        lo, hi = torch.aminmax(ids)
-        if int(lo) < 0 or int(hi) >= C:
-            raise IndexError(f"packed_lookup id outside [0, {C})")
+        _check_ids("packed_lookup", ids, C)
     launch = _build.function("packed_lookup", "packed_lookup_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p])
@@ -72,6 +91,51 @@ def packed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
 
 
 packed_lookup.launches = 0
+
+
+def unpacked_lookup(items: torch.Tensor, ids: torch.Tensor, *,
+                    ids_checked: bool = False) -> torch.Tensor:
+    """items (n, d) any dtype; ids (R, omega) int32 -> (R, omega, d).
+
+    One copy unit per (request, item), against :func:`packed_lookup`'s one
+    per request.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (counted in ``unpacked_lookup.launches``).  Unless the
+    caller has checked the ids (``ids_checked=True``), the wrapper checks
+    them against [0, n) first, which on the card costs a sync.
+    """
+    if items.device.type == "cpu" and ids.device.type == "cpu":
+        if not ids_checked:
+            _check_ids("unpacked_lookup", ids, items.shape[0])
+        return unpacked_lookup_plain(items, ids)
+    if items.device.type != "cuda" or ids.device != items.device:
+        raise ValueError(
+            f"unpacked_lookup runs on one cuda device or the cpu, got "
+            f"{items.device} and {ids.device}")
+    if items.dim() != 2 or ids.dim() != 2 or ids.dtype != torch.int32:
+        raise ValueError(
+            f"unpacked_lookup needs (n, d) items and (R, omega) int32 ids, "
+            f"got {tuple(items.shape)} and {tuple(ids.shape)} {ids.dtype}")
+    if not (items.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("unpacked_lookup needs contiguous items and ids")
+    n, d = items.shape
+    R, omega = ids.shape
+    out = torch.empty((R, omega, d), dtype=items.dtype, device=items.device)
+    row_bytes = d * items.element_size()
+    if R * omega == 0 or row_bytes == 0:
+        return out
+    if not ids_checked:
+        _check_ids("unpacked_lookup", ids, n)
+    launch = _build.function("packed_lookup", "unpacked_lookup_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p])
+    code = launch(items.data_ptr(), ids.data_ptr(), out.data_ptr(), R * omega,
+                  row_bytes, torch.cuda.current_stream(items.device).cuda_stream)
+    _build.check("packed_lookup", "packed_lookup", code)
+    unpacked_lookup.launches += 1
+    return out
+
+
+unpacked_lookup.launches = 0
 
 
 def clique_lookup(clique_of, items, *, device="cpu",

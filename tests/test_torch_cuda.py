@@ -16,6 +16,8 @@ import torch
 from repro_torch.core import (
     CacheEnvironment,
     CostParams,
+    SweepEngine,
+    SweepPoint,
     get_policy,
     run_policy,
 )
@@ -33,6 +35,8 @@ from repro_torch.kernels import (
     seg_running_argmax_plain,
     seg_running_max,
     seg_running_max_plain,
+    unpacked_lookup,
+    unpacked_lookup_plain,
 )
 from repro_torch.traces import SynthConfig, synth_trace
 
@@ -224,3 +228,127 @@ def test_host_schedule_replay_on_card_equals_cpu(cuda_device, name):
     assert gpu.costs.n_misses == cpu.costs.n_misses
     assert gpu.costs.n_hits == cpu.costs.n_hits
     assert np.isclose(gpu.total, cpu.total, rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.float64])
+@pytest.mark.parametrize("d,R", [(1, 9999), (3, 1), (255, 64), (256, 64),
+                                 (256, 4096)])
+def test_unpacked_lookup_equals_plain(cuda_device, d, R, dtype):
+    """The unpacked gather bitwise against its plain version and against
+    the packed gather of the same bytes; ids outside [0, n) raise."""
+    rng = np.random.default_rng(d + R)
+    C, omega = 128, 5
+    table = torch.from_numpy(rng.standard_normal((C, omega, d)) * 100).to(
+        dtype).to(cuda_device)
+    items = table.reshape(C * omega, d)
+    cids = torch.from_numpy(rng.integers(0, C, size=R).astype(np.int32)).to(
+        cuda_device)
+    iids = (cids[:, None] * omega + torch.arange(
+        omega, dtype=torch.int32, device=cuda_device)).to(torch.int32)
+    n0 = unpacked_lookup.launches
+    got = unpacked_lookup(items, iids)
+    assert unpacked_lookup.launches == n0 + 1
+    assert torch.equal(got, unpacked_lookup_plain(items, iids))
+    assert torch.equal(got, packed_lookup(table, cids))
+    rids = torch.from_numpy(rng.integers(0, C * omega, size=(R, 2)).astype(
+        np.int32)).to(cuda_device)
+    assert torch.equal(unpacked_lookup(items, rids),
+                       unpacked_lookup_plain(items, rids))
+    for bad in (-1, C * omega):
+        with pytest.raises(IndexError):
+            unpacked_lookup(items, torch.tensor([[0, bad]], dtype=torch.int32,
+                                                device=cuda_device))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("S,L", [(1, 8193), (3, 7), (8, 8193), (64, 1000)])
+def test_lane_scans_equal_plain(cuda_device, S, L):
+    """The scans' lane form, (S, L) values over one (L,) start vector,
+    bitwise against the plain version and the one-lane kernel per lane."""
+    rng = np.random.default_rng(S * L)
+    v = rng.integers(0, 4, size=(S, L)).astype(np.float64)
+    v[rng.random((S, L)) < 0.1] = -np.inf
+    s = rng.random(L) < 0.01
+    tv = torch.from_numpy(v).to(cuda_device)
+    ts = torch.from_numpy(s).to(cuda_device)
+    n0 = seg_running_max.launches
+    got = seg_running_max(tv, ts)
+    assert seg_running_max.launches == n0 + 1
+    assert torch.equal(got, seg_running_max_plain(tv, ts))
+    gv, gi = seg_running_argmax(tv, ts)
+    pv, pi = seg_running_argmax_plain(tv, ts)
+    assert torch.equal(gv, pv) and torch.equal(gi, pi)
+    for i in range(S):
+        lv, li = seg_running_argmax(tv[i].contiguous(), ts)
+        assert torch.equal(gv[i], lv) and torch.equal(gi[i], li)
+    torch.cuda.synchronize()
+
+
+def test_laned_sweep_on_card_equals_cpu(cuda_device):
+    """A small sweep under per-server dt (lanes of 3 scenarios sharing a
+    schedule) on the card equals the same sweep on the CPU, state and
+    costs; the lane scans launch."""
+    trace = synth_trace(SynthConfig(
+        kind="netflix", n_items=60, n_servers=40, n_requests=6000,
+        t_max=4.0, bundle_cover=1.0, bundle_zipf=0.7, seed=2,
+        size_dist="lognormal"))
+    pts = []
+    for alpha in (0.6, 0.8, 1.0):
+        params = CostParams(alpha=alpha)
+        env = CacheEnvironment.resolve(CacheEnvironment.skewed(
+            trace.n, trace.m, params, price_sigma=1.0, seed=1), trace, params)
+        for name in ("akpc", "no_packing"):
+            kw = dict(params=params, env=env, cost_model="heterogeneous")
+            if name == "akpc":
+                kw.update(t_cg=0.5, top_frac=0.5)
+            pts.append(SweepPoint(name, trace, kw))
+    n0 = seg_running_max.launches
+    eng = SweepEngine()
+    gpu = eng.run(pts)
+    assert seg_running_max.launches > n0
+    assert max(g["lanes"] for g in eng.last_stats["groups"]) == 3
+    cpu = SweepEngine(device="cpu").run(pts)
+    for a, b in zip(gpu, cpu):
+        assert np.array_equal(a.state.partition.clique_of,
+                              b.state.partition.clique_of)
+        assert np.array_equal(a.state.E, b.state.E)
+        assert np.array_equal(a.state.anchor, b.state.anchor)
+        assert a.costs.n_misses == b.costs.n_misses
+        assert np.isclose(a.total, b.total, rtol=1e-9, atol=0.0)
+
+
+def test_super_group_and_shard_sweep_on_card_equals_cpu(cuda_device):
+    """The sweep's two non-laned branches on the card: AKPC points that
+    differ in theta (the reference's device-CGM super-group, replayed one
+    by one through the device clique generation) and a point over three
+    trace shards (one schedule per shard) equal the same sweep on the
+    CPU, state and costs."""
+    def trace(seed, n_requests):
+        return synth_trace(SynthConfig(
+            kind="netflix", n_items=60, n_servers=12, n_requests=n_requests,
+            t_max=30.0, bundle_cover=1.0, bundle_zipf=0.7, seed=seed))
+
+    kw = dict(t_cg=0.73, top_frac=1.0)
+    tr = trace(3, 3000)
+    shards = [trace(s, 1200) for s in (3, 4, 5)]
+    pts = [SweepPoint("akpc", tr, dict(params=CostParams(theta=th), **kw))
+           for th in (0.1, 0.3)]
+    pts.append(SweepPoint("akpc", shards, dict(params=CostParams(), **kw)))
+    md0 = merge_density.launches
+    eng = SweepEngine()
+    gpu = eng.run(pts)
+    assert merge_density.launches > md0
+    assert eng.last_stats["device_cgm_points"] == 2
+    assert eng.last_stats["shard_schedules"] == 3
+    cpu = SweepEngine(device="cpu").run(pts)
+    for a, b in zip(gpu, cpu):
+        assert np.array_equal(a.state.partition.clique_of,
+                              b.state.partition.clique_of)
+        assert np.array_equal(a.state.E, b.state.E)
+        assert np.array_equal(a.state.anchor, b.state.anchor)
+        for f in ("n_requests", "n_misses", "n_hits", "items_transferred"):
+            assert getattr(a.costs, f) == getattr(b.costs, f)
+        assert np.isclose(a.total, b.total, rtol=1e-9, atol=0.0)
+    assert gpu[2].shard_stats["n"] == 3
+    np.testing.assert_allclose(gpu[2].shard_stats["totals"],
+                               cpu[2].shard_stats["totals"], rtol=1e-9)
