@@ -16,9 +16,13 @@
    inputs are captured from the card run;
 4. holds the three kernels of the device clique generation against their
    plain PyTorch versions, bitwise, on the captured inputs, on synthetic
-   ones at the same shapes and on ragged ones; times kernel, plain
-   version and library call on the captured inputs and works out each
-   kernel's bound from the work these inputs need;
+   ones at the same shapes and on ragged ones, and ``crm_update`` and
+   ``clique_pair_edges`` on the inputs their sparse designs could get
+   wrong (``kernel_bench.worst_cases``: dense, empty and strided rows, S 1,
+   h 1); every kernel is called twice on each input and must give the
+   same bits both times; times kernel, plain version and library call on
+   the captured and the worst-case inputs and works out each kernel's
+   bound from the work these inputs need;
 5. the host-schedule replay: ``hetero-table2`` (the Table-II trace with
    lognormal item sizes under the heterogeneous cost model, per-server
    dt) with ``akpc``, ``no_packing``, ``ttl``, ``packcache`` and
@@ -144,6 +148,10 @@ SOURCES = {
 }
 #: the kernels of the AKPC replay with the device clique generation
 CGM_KERNELS = ("crm_update", "clique_pair_edges", "merge_density")
+#: timed calls of a kernel (and of its plain version and library call) on
+#: a captured input: at 10-50 us a call, fewer would sit inside the host's
+#: jitter
+REPS = 100
 #: the scan kernels of the host-schedule replay under per-server dt
 SEG_KERNELS = ("seg_running_argmax", "seg_running_max")
 #: requests of each configuration's head that also run on the CPU
@@ -243,10 +251,15 @@ def _equal(got, want) -> tuple[bool, float]:
 
 
 def held_equal(report: list, name, label, kern, plain) -> float:
-    """Run a kernel and its plain version; fail unless they agree bit for
-    bit.  Appends the check to ``report``; returns the max abs error."""
-    got, want = kern(), plain()
+    """Run a kernel twice and its plain version once; fail unless the two
+    kernel runs give the same bits (the order of its atomics must not
+    matter) and agree with the plain version bit for bit.  Appends the
+    check to ``report``; returns the max abs error."""
+    got, again, want = kern(), kern(), plain()
     torch.cuda.synchronize()
+    if not _equal(got, again)[0]:
+        raise AssertionError(f"{name} gave other bits on a second call on "
+                             f"{label}")
     eq, err = _equal(got, want)
     report.append({"kernel": name, "inputs": label, "equal": eq})
     if not eq:
@@ -255,12 +268,47 @@ def held_equal(report: list, name, label, kern, plain) -> float:
     return err
 
 
-def kernel_phase(shapes: dict, captured: dict, seed: int, dev) -> dict:
+def pair_bound(name: str, args: tuple) -> dict:
+    """The bound of ``crm_update`` (H) or ``clique_pair_edges`` (M, A) at
+    these inputs: each input read once, the output written once, the 0/1
+    products' multiply-adds at the TF32 peak."""
+    if name == "crm_update":
+        (H,) = args
+        rows, h = H.shape
+        return bound(product_ops(H.T, H), PEAK_TF32, 4.0 * (rows * h + h * h))
+    M, A = args
+    S, h = M.shape
+    return bound(product_ops(M, A) + product_ops(M @ A, M.T), PEAK_TF32,
+                 4.0 * (S * h + h * h + S * S))
+
+
+def worst_phase(report: list, seed: int, dev) -> dict:
+    """``crm_update`` and ``clique_pair_edges`` on the inputs their sparse
+    designs could get wrong (``kernel_bench.worst_cases``): twice, bitwise
+    against the plain version, and timed.  Returns records by kernel and
+    label."""
+    calls = {"crm_update": (crm_update, crm_update_plain, lambda H: H.T @ H),
+             "clique_pair_edges": (clique_pair_edges, clique_pair_edges_plain,
+                                   lambda M, A: M @ A @ M.T)}
+    records: dict = {}
+    for name, label, args in kernel_bench.worst_cases(dev, seed):
+        kern, plain, lib = (lambda f=f, a=args: f(*a) for f in calls[name])
+        err = held_equal(report, name, f"worst {label}", kern, plain)
+        records.setdefault(name, {})[label] = {
+            "shape": [list(a.shape) for a in args], "max_abs_err": err,
+            "ms": cuda_time(kern, 3), "plain_ms": cuda_time(plain, 3),
+            "library_ms": cuda_time(lib, 3), **pair_bound(name, args)}
+    return records
+
+
+def kernel_phase(shapes: dict, captured: dict, seed: int, dev
+                 ) -> tuple[dict, dict]:
     """The device clique generation's kernels: bitwise against their plain
     versions on synthetic inputs at each configuration's shapes and at
-    ragged ones, and on the inputs captured from each configuration's
-    replay, on which they are timed.  Returns per-kernel timing records by
-    configuration."""
+    ragged ones, on the worst cases of the sparse designs, and on the
+    inputs captured from each configuration's replay, on which they are
+    timed.  Returns per-kernel timing records by configuration, and the
+    worst cases' records."""
     rng = np.random.default_rng(seed)
     records: dict = {}
     ragged = {"ragged": (37, 1001), "ragged-wide": (1000, 3333)}
@@ -306,15 +354,12 @@ def kernel_phase(shapes: dict, captured: dict, seed: int, dev) -> dict:
         S = M.shape[0]
         cases = {
             "crm_update": (lambda: crm_update(H), lambda: crm_update_plain(H),
-                           lambda: H.T @ H,
-                           bound(product_ops(H.T, H), PEAK_TF32,
-                                 4.0 * (wcap * h + h * h))),
+                           lambda: H.T @ H, pair_bound("crm_update", (H,))),
             "clique_pair_edges": (
                 lambda: clique_pair_edges(M, A),
                 lambda: clique_pair_edges_plain(M, A),
                 lambda: M @ A @ M.T,
-                bound(product_ops(M, A) + product_ops(M @ A, M.T),
-                      PEAK_TF32, 4.0 * (S * h + h * h + S * S))),
+                pair_bound("clique_pair_edges", (M, A))),
             "merge_density": (
                 lambda: merge_density(X, sizes, omega, g32),
                 lambda: merge_density_plain(X, sizes, omega, g32), None,
@@ -322,19 +367,20 @@ def kernel_phase(shapes: dict, captured: dict, seed: int, dev) -> dict:
         }
         for name, (kern, plain, lib, bnd) in cases.items():
             err = held(name, f"captured {label}", kern, plain)
-            reps = 10 if name != "merge_density" else 100
             records.setdefault(label, {})[name] = {
                 "shape": {"h": h, "wcap": wcap, "S": S,
                           "captured_size": cap["sizes"][name]},
                 "inputs": "captured",
                 "max_abs_err": err,
-                "ms": cuda_time(kern, reps),
-                "plain_ms": cuda_time(plain, reps),
-                "library_ms": cuda_time(lib, reps) if lib else None,
+                "ms": cuda_time(kern, REPS),
+                "plain_ms": cuda_time(plain, REPS),
+                "library_ms": cuda_time(lib, REPS) if lib else None,
                 **bnd,
             }
+    worst = worst_phase(report, seed, dev)
     print("kernels " + json.dumps(report), flush=True)
-    return records
+    print("kernels_worst " + json.dumps(worst), flush=True)
+    return records, worst
 
 
 def same_state(a, b) -> None:
@@ -630,9 +676,7 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
             rows, h = Hd.shape
             cases["crm_update"] = (
                 lambda H=Hd: crm_update(H), lambda H=Hd: crm_update_plain(H),
-                lambda H=Hd: H.T @ H,
-                bound(product_ops(Hd.T, Hd), PEAK_TF32,
-                      4.0 * (rows * h + h * h)),
+                lambda H=Hd: H.T @ H, pair_bound("crm_update", (Hd,)),
                 {"rows": int(rows), "h": int(h)})
         if "clique_pair_edges" in cap:
             M, A = cap["clique_pair_edges"]
@@ -642,17 +686,15 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
                 lambda M=Md, A=Ad: clique_pair_edges(M, A),
                 lambda M=Md, A=Ad: clique_pair_edges_plain(M, A),
                 lambda M=Md, A=Ad: M @ A @ M.T,
-                bound(product_ops(Md, Ad) + product_ops(Md @ Ad, Md.T),
-                      PEAK_TF32, 4.0 * (S * h + h * h + S * S)),
+                pair_bound("clique_pair_edges", (Md, Ad)),
                 {"S": int(S), "h": int(h)})
         for name, (kern, plain, lib, bnd, shape) in cases.items():
             err = held(name, f"captured {cfg}", kern, plain)
-            reps = 10 if name in CGM_KERNELS else 100
             records.setdefault(name, {})[cfg] = {
                 "shape": shape, "max_abs_err": err,
-                "ms": cuda_time(kern, reps),
-                "plain_ms": cuda_time(plain, reps),
-                "library_ms": cuda_time(lib, reps) if lib else None,
+                "ms": cuda_time(kern, REPS),
+                "plain_ms": cuda_time(plain, REPS),
+                "library_ms": cuda_time(lib, REPS) if lib else None,
                 **bnd,
             }
     print("kernels2 " + json.dumps(report), flush=True)
@@ -968,8 +1010,9 @@ def main() -> int:
         results[c], captured_cgm[c] = slice_phase(c, v[0], v[1])
         phase(f"slice1 {c}", t0)
     t0 = time.perf_counter()
-    records = kernel_phase({c: (v[2], v[3]) for c, v in configs.items()},
-                           captured_cgm, args.seed, dev)
+    records, worst = kernel_phase(
+        {c: (v[2], v[3]) for c, v in configs.items()}, captured_cgm,
+        args.seed, dev)
     del captured_cgm
     phase("kernels_cgm", t0)
 
@@ -1031,6 +1074,8 @@ def main() -> int:
             for c, rec2 in records2.get(name, {}).items():
                 by_config[f"{c} host CGM"] = {
                     **rec2, "launches": results2[c]["akpc"]["launches"][name]}
+            for label, rec2 in worst.get(name, {}).items():
+                by_config[f"worst {label}"] = rec2
         elif name == "unpacked_lookup":
             brecs = [r for r in bench_recs if r["name"] == name]
             rec = dict(brecs[-1])

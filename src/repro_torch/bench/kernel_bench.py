@@ -25,6 +25,12 @@ table row they touch read once, the output written once) at 3.35 TB/s
 and the products' multiply-adds at these inputs at the TF32 peak.  With
 ``--device cpu`` the wrappers run their plain versions and only the
 checks run: no time is taken on the CPU.
+
+:func:`worst_cases` builds the inputs that the sparse designs of
+``crm_update`` and ``clique_pair_edges`` could get wrong (dense and empty
+rows, strided views, ragged row counts, memberships with slots in several
+groups, S 1 and h 1); ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
+hold both kernels against their plain versions on them.
 """
 from __future__ import annotations
 
@@ -45,6 +51,74 @@ DENSITY_SHAPES = ((60, 60), (200, 512))
 LOOKUP = (5, 256, 64, 128)
 #: the lookup pair where bytes matter: C cliques, R requests
 BIG_C, BIG_R = 10_000, 65_536
+
+
+def _incidence(rng, rows: int, h: int, ones: int = 5) -> np.ndarray:
+    """A (rows, h + 1) buffer with up to ``ones`` ones a row, the last
+    column the dump slot, as the device clique generation builds it."""
+    H = np.zeros((rows, h + 1), np.float32)
+    cols = rng.integers(0, h + 1, size=(rows, ones))
+    H[np.repeat(np.arange(rows), ones), cols.reshape(-1)] = 1.0
+    return H
+
+
+def _binary(rng, h: int, p: float) -> np.ndarray:
+    A = np.triu(rng.random((h, h)) < p, 1)
+    return (A | A.T).astype(np.float32)
+
+
+def worst_cases(device, seed: int = 0) -> list[tuple[str, str, tuple]]:
+    """(kernel, label, arguments) of ``crm_update`` and ``clique_pair_edges``
+    on inputs their sparse designs could get wrong, on ``device``."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    cases = []
+
+    def crm(label, H, strided=False):
+        # a strided case passes the leading h columns of the wider buffer
+        t = torch.from_numpy(H).to(dev)
+        cases.append(("crm_update", label, (t[:, :-1] if strided else t,)))
+
+    def rand(shape, p):
+        return (rng.random(shape) < p).astype(np.float32)
+
+    crm("H density 0.5 (3001 x 1000)", rand((3001, 1000), 0.5))
+    crm("H density 0.5 (1001 x 32)", rand((1001, 32), 0.5))
+    crm("H all ones (777 x 6)", np.ones((777, 6), np.float32))
+    H = _incidence(rng, 3001, 1000)
+    H[17] = 1.0
+    crm("H one row of ones, strided (3001 x 1000 of 1001)", H, True)
+    crm("H all zero (1001 x 1000)", np.zeros((1001, 1000), np.float32))
+    crm("H ~64 ones a row (2000 x 600)", rand((2000, 600), 64 / 600))
+    for h, rows in ((1, 4097), (6, 25_001), (32, 22_977), (1000, 3001),
+                    (1024, 22_913)):
+        crm(f"H strided (wcap {rows}, h {h} of {h + 1})",
+            _incidence(rng, rows, h), True)
+    for h, rows in ((6, 1), (6, 513), (100, 1), (100, 9)):
+        crm(f"H ragged rows ({rows} x {h})", _incidence(rng, rows, h)[:, :h])
+
+    def cpe(label, M, A):
+        cases.append(("clique_pair_edges", label,
+                      (torch.from_numpy(M).to(dev),
+                       torch.from_numpy(A).to(dev))))
+
+    cpe("M density 0.3 (S 300, h 1000)", rand((300, 1000), 0.3),
+        _binary(rng, 1000, 0.2))
+    M = np.zeros((700, 1000), np.float32)
+    grp = rng.integers(-1, 350, size=1000)
+    M[grp[grp >= 0], np.arange(1000)[grp >= 0]] = 1.0
+    cpe("M with empty rows (S 700, h 1000)", M, _binary(rng, 1000, 0.2))
+    M = rand((50, 1024), 0.02)
+    M[3] = 1.0
+    cpe("M a row of ones (S 50, h 1024)", M, _binary(rng, 1024, 0.5))
+    cpe("M all zero (S 64, h 32)", np.zeros((64, 32), np.float32),
+        _binary(rng, 32, 0.5))
+    cpe("S 1 (h 1000, M density 0.3)", rand((1, 1000), 0.3),
+        _binary(rng, 1000, 0.2))
+    cpe("h 1 (S 5)", np.array([[1], [0], [1], [1], [0]], np.float32),
+        np.ones((1, 1), np.float32))
+    cpe("S 1, h 1", np.ones((1, 1), np.float32), np.ones((1, 1), np.float32))
+    return cases
 
 
 def _record(name, shape, kern, plain, lib, bnd, dev, reps, **extra) -> dict:

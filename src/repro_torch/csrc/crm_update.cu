@@ -4,116 +4,208 @@
 // Replaces the TPU kernel repro/kernels/crm_update.py::crm_update (Pallas
 // body _crm_kernel): a transpose-matmul tiled over (h/bm, h/bn) output
 // blocks with the request axis as a sequential grid dimension accumulating
-// in VMEM.  Here blocks run in parallel and carry nothing between them, so
-// each block loops over one chunk of the request axis and the chunks meet
-// in the output through atomic adds.
+// in VMEM.
 //
-// What bounds it on an H100: operations.  2 * rows * h^2 flops against
-// rows * h * 4 bytes read, about h/2 flops a byte (~512 at h = 1024), far
-// above the card's fp32 balance point; the kernel runs on the fp32 FMA
-// units (67 TFLOP/s peak), not the tensor cores.
+// What bounds it on an H100: bytes.  The replay's H has at most 5 ones a
+// row (the device CGM's slot buffer, the host CGM's padded item ids), so
+// a row adds at most 20 ordered pairs against h * 4 bytes read: at
+// catalog-10k's device CGM (22,912 x 1024) H is 94 MB and the pairs at
+// most 0.46 M, at the host CGM's (255,498 x 1000) 1 GB and 5.1 M.  Reading H once at the
+// HBM rate is the least time; a dense product's 2 rows h^2 multiply-adds
+// are nearly all of zeros.
 //
-// Design: a plain shared-memory tiled GEMM, split along the rows.  Each
-// 256-thread block owns a 64 x 64 output tile and one chunk of rows, which
-// it walks in stages of 16: both 16 x 64 column strips of H go to shared
-// memory with coalesced loads (neighbouring threads read neighbouring
-// columns of one row), then every thread accumulates a 4 x 4 register
-// sub-tile, and adds it to the zeroed output with atomicAdd.  The chunk
-// count is chosen so that at least two blocks per SM are in flight even
-// when h is small (at h = 32 there is a single output tile).  H holds 0/1
-// and every partial sum is an integer below 2^24 (rows < 2^24 is checked
-// by the caller), so fp32 accumulation, atomics included, is exact in any
-// order and the result equals the plain PyTorch product bit for bit.  The
-// diagonal receives no adds and stays zero.  The row stride ``ld`` lets the
-// caller pass the leading h columns of a wider (rows, h + 1) buffer without
-// a copy.
-// Later work: build the tiles straight from the (rows, d) slot buffer, and
-// use int8/fp8 wgmma (exact for 0/1 operands) instead of fp32 FMA.
+// Design: one pass over H, each row's pairs of nonzero columns counted
+// into the output.
+// * h > 32 (crm_wide_kernel): a warp a row.  Each lane loads 8 columns
+//   32 apart before it looks at any (coalesced 4-byte loads, 1 KB in
+//   flight a warp, no alignment needed: at the device CGM the row stride
+//   is h + 1).  A ballot per 32 columns gives the nonzero columns, kept in
+//   a per-warp list of up to kCap entries; then the warp adds 1 for every
+//   ordered pair a != b of the list, a lane a pair, with atomicAdd into
+//   the output in device memory (it resolves in L2: 4 MB at h 1024).  A
+//   row with more than kCap nonzeros (the kernel bench has ~31, a dense
+//   test row h) walks its 32-column ballot masks word pair by word pair
+//   instead: right for any 0/1 H, fast only for sparse rows.  Atomics were
+//   chosen over output tiles in shared memory because a tile per block
+//   would need every block to read all of H (or a compaction pass first),
+//   and the pairs are few: at most one atomic per 200 bytes read at
+//   catalog-10k.
+// * h <= 32 (crm_narrow_kernel): a lane a row (a warp a row would leave
+//   26 of 32 lanes idle at the host CGM's h 6).  A warp reads 32 to 1,024
+//   consecutive rows (about 1,000 entries) with coalesced loads, 32
+//   consecutive entries and 16 loads in flight a lane; each nonzero sets
+//   its column's bit in its row's mask in shared memory.  Then each lane
+//   counts its rows' pairs into the block's (h, h) integer counts in
+//   shared memory, which go to the output once at the end.  The counts
+//   are integers because integer shared-memory atomics are native and
+//   float ones a compare-and-swap loop.  Each lane walks its own pairs:
+//   a warp summing each pair over its lanes with shuffles would add once
+//   a pair a warp (the Zipf traces' popular pairs), but would walk every
+//   pair present in any of its 32 rows, hundreds at h 32.
+// Exact in any order: the kernel counts the rows in which both columns
+// are nonzero, which is H^T H for the 0/1 H the callers pass; every count
+// is an integer below 2^24 (rows < 2^24 is checked by the caller), so the
+// integer counts and the float adds of integers, atomics included, are
+// exact, and the result equals the plain PyTorch product bit for bit
+// however the atomics interleave.  The diagonal receives no adds and stays
+// zero.  The row stride ``ld`` lets the caller pass the leading h columns
+// of a wider (rows, h + 1) buffer.
 #include "launch.cuh"
 
 namespace {
 
-constexpr int kTile = 64;     // output tile edge
-constexpr int kStage = 16;    // rows of H per shared-memory stage
-constexpr int kEdge = 16;     // threads along a tile edge (16 x 16 = 256)
-constexpr int kThreads = kEdge * kEdge;
-constexpr int kSub = kTile / kEdge;  // 4 x 4 outputs per thread
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 8;       // 32-column words a lane loads at once
+constexpr int kCap = 64;         // nonzeros of a row kept as a list
+constexpr int kNarrow = 32;      // h up to which a lane takes a row
+constexpr int kLoads = 16;       // loads in flight a lane (narrow)
+constexpr int kSMs = 132;        // an H100 SXM
+constexpr unsigned kAll = 0xffffffffu;
 
+// Rows a lane takes at once at h <= 32: about 1,000 entries a warp.
+__host__ __device__ inline int rows_per_lane(int h) {
+  return max(1, 32 / h);
+}
+
+// Dynamic shared memory: the block's (h, h) counts, then one mask a row
+// of each warp's rows.
 __global__ void __launch_bounds__(kThreads)
-crm_kernel(const float* __restrict__ H, float* __restrict__ out, int rows,
-           int h, int ld, int chunk) {
-  __shared__ float As[kStage][kTile];
-  __shared__ float Bs[kStage][kTile];
-  const int tx = threadIdx.x % kEdge;
-  const int ty = threadIdx.x / kEdge;
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  float acc[kSub][kSub];
+crm_narrow_kernel(const float* __restrict__ H, float* __restrict__ out,
+                  int rows, int h, int ld) {
+  extern __shared__ int cnt[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int per_lane = rows_per_lane(h);
+  const int span = 32 * per_lane;                 // rows a warp step
+  unsigned* wmask = reinterpret_cast<unsigned*>(cnt + h * h) + warp * span;
+  for (int e = threadIdx.x; e < h * h; e += kThreads) cnt[e] = 0;
+  for (int t = 0; t < per_lane; ++t) wmask[lane + 32 * t] = 0u;
+  __syncthreads();
+  for (int base = (blockIdx.x * kWarps + warp) * span; base < rows;
+       base += gridDim.x * kWarps * span) {
+    const int n = min(span, rows - base) * h;     // the step's entries
+    for (int e0 = 0; e0 < n; e0 += 32 * kLoads) {
+      float v[kLoads];
 #pragma unroll
-  for (int a = 0; a < kSub; ++a)
-#pragma unroll
-    for (int b = 0; b < kSub; ++b) acc[a][b] = 0.0f;
-
-  const int r_begin = blockIdx.z * chunk;
-  const int r_end = min(rows, r_begin + chunk);
-  for (int r0 = r_begin; r0 < r_end; r0 += kStage) {
-    for (int e = threadIdx.x; e < kStage * kTile; e += kThreads) {
-      const int kk = e / kTile;
-      const int c = e % kTile;
-      const int r = r0 + kk;
-      const bool row_ok = r < r_end;
-      const float* hrow = H + static_cast<size_t>(r) * ld;
-      As[kk][c] = (row_ok && i0 + c < h) ? hrow[i0 + c] : 0.0f;
-      Bs[kk][c] = (row_ok && j0 + c < h) ? hrow[j0 + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kStage; ++kk) {
-      float a[kSub], b[kSub];
-#pragma unroll
-      for (int s = 0; s < kSub; ++s) {
-        a[s] = As[kk][ty + kEdge * s];
-        b[s] = Bs[kk][tx + kEdge * s];
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = e0 + u * 32 + lane;
+        const int rr = e / h;
+        v[u] = e < n ? H[static_cast<size_t>(base + rr) * ld + (e - rr * h)]
+                     : 0.0f;
       }
 #pragma unroll
-      for (int p = 0; p < kSub; ++p)
-#pragma unroll
-        for (int q = 0; q < kSub; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
+      for (int u = 0; u < kLoads; ++u) {
+        if (v[u] == 0.0f) continue;
+        const int e = e0 + u * 32 + lane;
+        const int rr = e / h;
+        atomicOr(&wmask[rr], 1u << (e - rr * h));
+      }
     }
-    __syncthreads();
+    __syncwarp();
+    for (int t = 0; t < per_lane; ++t) {
+      const int rr = lane + 32 * t;
+      const unsigned mask = wmask[rr];
+      wmask[rr] = 0u;
+      for (unsigned ra = mask; ra; ra &= ra - 1u) {
+        const int a = __ffs(ra) - 1;
+        for (unsigned rb = mask & ~(1u << a); rb; rb &= rb - 1u)
+          atomicAdd(&cnt[a * h + __ffs(rb) - 1], 1);
+      }
+    }
+    __syncwarp();
   }
+  __syncthreads();
+  for (int e = threadIdx.x; e < h * h; e += kThreads)
+    if (cnt[e] != 0) atomicAdd(out + e, static_cast<float>(cnt[e]));
+}
 
+// Dynamic shared memory: per warp kCap columns and one ballot mask per 32
+// columns of the row.
+__global__ void __launch_bounds__(kThreads)
+crm_wide_kernel(const float* __restrict__ H, float* __restrict__ out,
+                int rows, int h, int ld) {
+  extern __shared__ int lists[];
+  const int words = (h + 31) / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* cols = lists + warp * (kCap + words);
+  unsigned* masks = reinterpret_cast<unsigned*>(cols + kCap);
+  const unsigned below = (1u << lane) - 1u;
+  for (int r = blockIdx.x * kWarps + warp; r < rows;
+       r += gridDim.x * kWarps) {
+    const float* row = H + static_cast<size_t>(r) * ld;
+    int z = 0;                                    // nonzeros so far
+    for (int w0 = 0; w0 < words; w0 += kUnroll) {
+      float v[kUnroll];
 #pragma unroll
-  for (int p = 0; p < kSub; ++p) {
-    const int i = i0 + ty + kEdge * p;
-    if (i >= h) continue;
+      for (int u = 0; u < kUnroll; ++u) {
+        const int c = (w0 + u) * 32 + lane;
+        v[u] = c < h ? row[c] : 0.0f;
+      }
 #pragma unroll
-    for (int q = 0; q < kSub; ++q) {
-      const int j = j0 + tx + kEdge * q;
-      if (j < h && i != j && acc[p][q] != 0.0f)
-        atomicAdd(out + static_cast<size_t>(i) * h + j, acc[p][q]);
+      for (int u = 0; u < kUnroll; ++u) {
+        const unsigned m = __ballot_sync(kAll, v[u] != 0.0f);
+        if (lane == 0 && w0 + u < words) masks[w0 + u] = m;
+        const int pos = z + __popc(m & below);
+        if (v[u] != 0.0f && pos < kCap) cols[pos] = (w0 + u) * 32 + lane;
+        z += __popc(m);
+      }
     }
+    __syncwarp();
+    if (z <= kCap) {
+      for (int p = lane; p < z * z; p += 32) {
+        const int a = p / z;
+        const int b = p - a * z;
+        if (a != b)
+          atomicAdd(out + static_cast<size_t>(cols[a]) * h + cols[b], 1.0f);
+      }
+    } else {
+      // a dense row: every pair of nonempty 32-column words, lane = a
+      for (int wi = 0; wi < words; ++wi) {
+        const unsigned mi = masks[wi];
+        if (!((mi >> lane) & 1u)) continue;
+        const int a = wi * 32 + lane;
+        for (int wj = 0; wj < words; ++wj) {
+          for (unsigned rb = masks[wj]; rb; rb &= rb - 1u) {
+            const int b = wj * 32 + __ffs(rb) - 1;
+            if (a != b) atomicAdd(out + static_cast<size_t>(a) * h + b, 1.0f);
+          }
+        }
+      }
+    }
+    __syncwarp();
   }
 }
 
 }  // namespace
 
 // H: (rows, ld) float32 with the first h columns used; out: (h, h) float32,
-// zeroed by the caller.
+// zeroed here.
 extern "C" int crm_update_launch(const float* H, float* out, int rows, int h,
                                  int ld, cudaStream_t stream) {
-  if (h <= 0 || rows <= 0) return static_cast<int>(cudaGetLastError());
-  constexpr int kMinBlocks = 264;   // two per SM on an H100
-  constexpr int kMinChunk = 256;    // rows a block walks at least
-  const int tiles_1d = (h + kTile - 1) / kTile;
-  const int tiles = tiles_1d * tiles_1d;
-  int chunks = (kMinBlocks + tiles - 1) / tiles;
-  chunks = max(1, min(chunks, (rows + kMinChunk - 1) / kMinChunk));
-  int chunk = (rows + chunks - 1) / chunks;
-  chunk = (chunk + kStage - 1) / kStage * kStage;
-  chunks = (rows + chunk - 1) / chunk;
-  const dim3 grid(tiles_1d, tiles_1d, chunks);
-  crm_kernel<<<grid, kThreads, 0, stream>>>(H, out, rows, h, ld, chunk);
+  if (h <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaError_t zeroed = cudaMemsetAsync(
+      out, 0, static_cast<size_t>(h) * h * sizeof(float), stream);
+  if (zeroed != cudaSuccess || rows <= 0) return static_cast<int>(zeroed);
+  if (h <= kNarrow) {
+    const int block_rows = kThreads * rows_per_lane(h);
+    const int blocks = min((rows + block_rows - 1) / block_rows, 8 * kSMs);
+    const size_t smem = (h * h + block_rows) * sizeof(int);
+    crm_narrow_kernel<<<blocks, kThreads, smem, stream>>>(H, out, rows, h,
+                                                           ld);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem =
+      static_cast<size_t>(kWarps) * (kCap + (h + 31) / 32) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        crm_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = min((rows + kWarps - 1) / kWarps, 8 * kSMs);
+  crm_wide_kernel<<<blocks, kThreads, smem, stream>>>(H, out, rows, h, ld);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 #: the kernels' sources, by library name
@@ -31,6 +33,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 #: what the last build did: seconds, and nvcc's output per source
 BUILD_INFO: dict = {}
 
@@ -105,11 +108,24 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def function(lib_name: str, symbol: str, argtypes, restype=ctypes.c_int):
-    """A C function of one library with its argument and result types set."""
-    fn = getattr(library(lib_name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = restype
+    """A C function of one library with its argument and result types set
+    (once: the function is kept, so a wrapper's call costs a lookup)."""
+    fn = _FUNCS.get((lib_name, symbol))
+    if fn is None:
+        fn = getattr(library(lib_name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _FUNCS[lib_name, symbol] = fn
     return fn
+
+
+def stream(t) -> int:
+    """PyTorch's current CUDA stream on the device of tensor ``t``, as the
+    raw ``cudaStream_t`` a launch function takes.  This is the getter
+    PyTorch's own compiled kernels launch with; it skips the Stream object
+    that ``torch.cuda.current_stream(...).cuda_stream`` builds on every
+    call, host time that a small kernel's call would otherwise pay."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(lib_name: str, prefix: str, code: int) -> None:

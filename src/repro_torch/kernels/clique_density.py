@@ -4,8 +4,18 @@ The port of ``repro.kernels.clique_density`` (TPU kernel
 ``clique_pair_edges``, Pallas body ``_density_kernel``).
 :func:`clique_pair_edges` launches the hand-written CUDA kernel
 ``csrc/clique_density.cu`` for CUDA tensors and runs the plain version
-:func:`clique_pair_edges_plain` for CPU tensors.  Both give exact integer
-counts in float32, so they agree bit for bit.
+:func:`clique_pair_edges_plain` for CPU tensors.  The kernel lists each
+row's nonzero columns of ``M`` (one launch), then sums, a block a row i,
+the rows of ``A`` in row i's list into shared memory and each other row's
+list over that sum (a second launch): work in proportion to the ones of
+``M``, which has at most one a column on the replay's path, and exact for
+any 0/1 ``M``.  Both give exact integer counts in float32, so they agree
+bit for bit.
+
+Shared memory: a block keeps one (h,) float32 row of ``M A`` and 256 list
+entries, 4 h + 1 KB; the float32 exactness bound on h (h(h-1)/2 < 2**24,
+so h <= 5793) keeps it at or under 24 KB, within the 48 KB any block may
+use.
 """
 from __future__ import annotations
 
@@ -14,10 +24,6 @@ import ctypes
 import torch
 
 from . import _build
-
-#: the kernel keeps two (8, h) float32 strips plus a staging tile in
-#: shared memory, which caps h at what one block can hold
-SMEM_CAP = 232_448
 
 
 def clique_pair_edges_plain(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -29,8 +35,8 @@ def clique_pair_edges_plain(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
 def clique_pair_edges(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """M (S, h) 0/1 float32 membership, A (h, h) 0/1 float32 -> X (S, S).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``clique_pair_edges.launches``).
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    two passes (counted once, in ``clique_pair_edges.launches``).
     """
     if M.device.type == "cpu" and A.device.type == "cpu":
         return clique_pair_edges_plain(M, A)
@@ -50,17 +56,14 @@ def clique_pair_edges(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     if h * (h - 1) // 2 >= 1 << 24:
         raise ValueError(f"h={h} puts the edge counts at the float32 "
                          "exactness bound 2**24")
-    smem = _build.function("clique_density", "clique_pair_edges_smem_bytes",
-                           [ctypes.c_int], ctypes.c_size_t)(h)
-    if smem > SMEM_CAP:
-        raise ValueError(f"h={h} needs {smem} bytes of shared memory, over "
-                         f"the {SMEM_CAP} a block may use")
     X = torch.empty((S, S), dtype=torch.float32, device=M.device)
+    # the rows' lists of nonzero columns, then their lengths
+    lists = torch.empty((S * h + S,), dtype=torch.int32, device=M.device)
     launch = _build.function("clique_density", "clique_pair_edges_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
-    code = launch(M.data_ptr(), A.data_ptr(), X.data_ptr(), S, h,
-                  torch.cuda.current_stream(M.device).cuda_stream)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    code = launch(M.data_ptr(), A.data_ptr(), X.data_ptr(), lists.data_ptr(),
+                  lists.data_ptr() + 4 * S * h, S, h, _build.stream(M))
     _build.check("clique_density", "clique_pair_edges", code)
     clique_pair_edges.launches += 1
     return X

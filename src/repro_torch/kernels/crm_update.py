@@ -3,8 +3,20 @@
 The port of ``repro.kernels.crm_update`` (TPU kernel ``crm_update``, Pallas
 body ``_crm_kernel``).  :func:`crm_update` launches the hand-written CUDA
 kernel ``csrc/crm_update.cu`` for a CUDA tensor and runs the plain version
-:func:`crm_update_plain` for a CPU tensor.  Both give exact integer counts
-in float32, so they agree bit for bit.
+:func:`crm_update_plain` for a CPU tensor.  The kernel reads ``H`` once and
+counts, for each row, every ordered pair of its nonzero columns into the
+output (a warp a row above h = 32, a lane a row at or below it), since
+the replay's ``H`` has at most 5 ones a row; it is right for any 0/1
+``H``, dense rows included.  For the 0/1 ``H`` the callers pass, those
+counts are ``H^T H``; both versions give exact integers in float32
+(atomics in any order add integers below 2**24), so they agree bit for
+bit.
+
+Shared memory: at h <= 32 a block keeps its (h, h) integer counts and one
+mask a row of its rows, at most 33 KB; above it each warp keeps a list of
+64 nonzero columns and one 32-bit mask per 32 columns, under the 48 KB a
+block has by default up to h of about 47,000 (past that the launch asks
+for more; the (h, h) output is 8.8 GB there).
 """
 from __future__ import annotations
 
@@ -45,12 +57,12 @@ def crm_update(H: torch.Tensor) -> torch.Tensor:
         raise ValueError("crm_update needs unit column stride and rows apart")
     if rows >= F32_EXACT:
         raise ValueError(f"{rows} rows reach the float32 exactness bound 2**24")
-    out = torch.zeros((h, h), dtype=torch.float32, device=H.device)
+    out = torch.empty((h, h), dtype=torch.float32, device=H.device)
     launch = _build.function("crm_update", "crm_update_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p])
     code = launch(H.data_ptr(), out.data_ptr(), rows, h, max(H.stride(0), h),
-                  torch.cuda.current_stream(H.device).cuda_stream)
+                  _build.stream(H))
     _build.check("crm_update", "crm_update", code)
     crm_update.launches += 1
     return out

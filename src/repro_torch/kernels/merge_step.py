@@ -74,7 +74,7 @@ def merge_density(X: torch.Tensor, sizes: torch.Tensor, omega: int,
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     code = launch(X.data_ptr(), sizes.data_ptr(), D.data_ptr(), S, int(omega),
                   float(np.float32(gamma32)), e_max32(omega),
-                  torch.cuda.current_stream(X.device).cuda_stream)
+                  _build.stream(X))
     _build.check("merge_step", "merge_density", code)
     merge_density.launches += 1
     return D

@@ -84,7 +84,7 @@ def packed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p])
     code = launch(table.data_ptr(), ids.data_ptr(), out.data_ptr(), R,
-                  row_bytes, torch.cuda.current_stream(table.device).cuda_stream)
+                  row_bytes, _build.stream(table))
     _build.check("packed_lookup", "packed_lookup", code)
     packed_lookup.launches += 1
     return out
@@ -129,7 +129,7 @@ def unpacked_lookup(items: torch.Tensor, ids: torch.Tensor, *,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_void_p])
     code = launch(items.data_ptr(), ids.data_ptr(), out.data_ptr(), R * omega,
-                  row_bytes, torch.cuda.current_stream(items.device).cuda_stream)
+                  row_bytes, _build.stream(items))
     _build.check("packed_lookup", "packed_lookup", code)
     unpacked_lookup.launches += 1
     return out

@@ -103,7 +103,7 @@ def seg_running_max(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p])
     code = launch(values.data_ptr(), starts.data_ptr(), out.data_ptr(), S, L,
-                  torch.cuda.current_stream(values.device).cuda_stream)
+                  _build.stream(values))
     _build.check("segment_reduce", "segment_reduce", code)
     seg_running_max.launches += 1
     return out
@@ -129,7 +129,7 @@ def seg_running_argmax(values: torch.Tensor, starts: torch.Tensor):
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     code = launch(values.data_ptr(), starts.data_ptr(), out_v.data_ptr(),
                   out_i.data_ptr(), S, L,
-                  torch.cuda.current_stream(values.device).cuda_stream)
+                  _build.stream(values))
     _build.check("segment_reduce", "segment_reduce", code)
     seg_running_argmax.launches += 1
     return out_v, out_i

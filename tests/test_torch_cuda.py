@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Needs a CUDA device and ``nvcc`` (the kernels are built from
-``src/repro_torch/csrc`` at first use); every test skips without a device.
-Run on a GPU machine with
+``src/repro_torch/csrc`` at first use).  Every test carries the ``gpu``
+marker and takes the ``cuda_device`` fixture, which skips it when no
+device is present (decided when the test runs, not when the file is
+imported).  Run on a GPU machine with
 
-    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 This file imports neither jax nor ``repro``, so it runs where only the
 port's dependencies are installed.
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.bench.kernel_bench import worst_cases
 from repro_torch.core import (
     CacheEnvironment,
     CostParams,
@@ -44,12 +47,13 @@ from repro_torch.traces import SynthConfig, synth_trace
 CGM_KERNELS = ("crm_update", "clique_pair_edges", "merge_density")
 
 
-pytestmark = pytest.mark.skipif(not torch.cuda.is_available(),
-                                reason="needs a CUDA device")
+pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture
 def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -108,6 +112,27 @@ def test_kernels_equal_plain(cuda_device, h, rows):
         if h >= 32:
             assert (want >= 0).any() and (want < 0).any()
         assert torch.equal(merge_density(X, sizes, omega, g32), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["crm_update", "clique_pair_edges"])
+def test_sparse_kernels_worst_cases(cuda_device, name):
+    """crm_update and clique_pair_edges on the inputs their sparse designs
+    could get wrong (dense, all-one, all-zero and strided rows of H at h 1
+    to 1024, ragged row counts; M with slots in several groups, empty
+    rows, S 1, h 1): two calls give the same bits, equal to the plain
+    version's."""
+    kern, plain = {"crm_update": (crm_update, crm_update_plain),
+                   "clique_pair_edges": (clique_pair_edges,
+                                         clique_pair_edges_plain)}[name]
+    cases = [c for c in worst_cases(cuda_device) if c[0] == name]
+    assert len(cases) >= 7
+    for _, label, args in cases:
+        n0 = kern.launches
+        got, again = kern(*args), kern(*args)
+        assert kern.launches == n0 + 2
+        assert torch.equal(got, again), label
+        assert torch.equal(got, plain(*args)), label
     torch.cuda.synchronize()
 
 

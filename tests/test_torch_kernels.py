@@ -15,6 +15,9 @@ import torch
 from repro.kernels.clique_density import clique_pair_edges as pallas_pair_edges
 from repro.kernels.crm_update import crm_update as pallas_crm_update
 from repro.kernels.merge_step import merge_density as pallas_merge_density
+from repro.kernels.ref import clique_pair_edges_ref, crm_ref
+
+from repro_torch.bench.kernel_bench import worst_cases
 
 from repro_torch.kernels import (
     clique_pair_edges,
@@ -63,6 +66,39 @@ def test_crm_update_plain_equals_pallas(rows, h):
     assert got.dtype == torch.float32
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(crm_update_plain(torch.from_numpy(H)).numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["crm_update", "clique_pair_edges"])
+def test_worst_cases_plain_equals_reference(name):
+    """The inputs on which the card tests hold the sparse kernels
+    (``kernel_bench.worst_cases``) are what their labels say, and on them
+    the wrapper (the plain version on the CPU) equals the reference's jnp
+    oracle bit for bit."""
+    cases = [c for c in worst_cases("cpu") if c[0] == name]
+    labels = " | ".join(c[1] for c in cases)
+    if name == "crm_update":
+        for word in ("density 0.5", "all ones", "one row of ones",
+                     "all zero", "strided", "ragged"):
+            assert word in labels
+        widths = set()
+        for label, (H,) in ((c[1], c[2]) for c in cases):
+            if "strided" in label:
+                assert H.stride(0) == H.shape[1] + 1, label
+                widths.add(H.shape[1])
+            with jax.enable_x64(True):
+                want = np.asarray(crm_ref(jnp.asarray(H.numpy())))
+            assert np.array_equal(crm_update(H).numpy(), want), label
+        assert {1, 6, 32, 1000, 1024} <= widths
+    else:
+        for word in ("density 0.3", "empty rows", "all zero", "S 1",
+                     "h 1"):
+            assert word in labels
+        for label, (M, A) in ((c[1], c[2]) for c in cases):
+            with jax.enable_x64(True):
+                want = np.asarray(clique_pair_edges_ref(
+                    jnp.asarray(M.numpy()), jnp.asarray(A.numpy())))
+            assert np.array_equal(clique_pair_edges(M, A).numpy(), want), \
+                label
 
 
 @pytest.mark.parametrize("S,h", [(64, 32), (70, 33), (256, 128), (2, 130)])
