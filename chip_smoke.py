@@ -29,13 +29,17 @@
    ``dp_greedy``; ``hetero-catalog-10k`` with ``akpc``; and ``no_packing``
    under table1 on ``netflix-table2`` (uniform dt: the scan kernels must
    stay idle).  Each run: kernels on the card, every expected kernel
-   launched, plain versions on the card (no launch), equal state and
+   launched, at most one item -> clique lookup a partition stretch
+   (windows + 1), plain versions on the card (no launch), equal state and
    costs, a CPU head equal to the card's;
 6. ``kernels_bench``: the kernel benchmark (``python -m
    repro_torch.bench.kernel_bench``), the only path of ``unpacked_lookup``:
    every row bitwise against the plain version, the two lookups against
    each other on the same bytes, plus ragged lookups (d 1, 3, 255, 256;
-   int32, float32, float64; R 1) and an id out of range that must raise;
+   int32, float32, float64; R 1), every path of the lookups' copy engine
+   (``kernel_bench.lookup_cases``: narrow, vector, sliced, ragged;
+   R 1, 3, 64, 65,537; int32, float32, float16), each twice, and an id
+   out of range that must raise;
 7. ``sweep_fig6``: the fig6 (64 alphas x 4 rhos) AKPC grid over
    ``netflix-table2`` as one ``SweepEngine`` call (one host schedule per
    rho, 64 scenario lanes each), 8 points of it against serial card runs
@@ -48,7 +52,8 @@
 9. holds the scan and gather kernels (and the CGM kernels at the host
    clique generation's shapes) against their plain versions on inputs
    captured from those replays (the scans also in the sweep's lane form)
-   and on ragged ones, and times them;
+   and on ragged ones, and times them (the lookups also on the card alone:
+   ``device_ms`` and ``library_device_ms``, from a CUDA graph of calls);
 10. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
@@ -169,6 +174,8 @@ FIG6_ALPHAS, FIG6_RHOS = 64, 4
 #: ragged unpacked lookups: row widths, element types, requests
 RAGGED_D = (1, 3, 255, 256)
 RAGGED_DTYPES = (torch.int32, torch.float32, torch.float64)
+#: the lookups' copy paths every check run must reach
+LOOKUP_PATHS = ("narrow", "vector", "sliced", "ragged")
 #: the replay's named profiler spans (``core/cgm.py``)
 SPANS = ("cgm.", "replay.", "host.")
 
@@ -543,6 +550,10 @@ def slice2_phase(config: str, trace, names, cost_model: str,
         if res.costs.n_requests != trace.n_requests:
             raise AssertionError("the replay did not cover the trace")
         st = res.loop_stats
+        if st["lookup_calls"] > res.n_windows + 1:
+            raise AssertionError(
+                f"{config}/{name}: {st['lookup_calls']} lookups for "
+                f"{res.n_windows} windows (one a partition stretch)")
         sizes = res.clique_sizes
         line = {
             "config": config, "policy": name, "cost_model": cost_model,
@@ -555,6 +566,9 @@ def slice2_phase(config: str, trace, names, cost_model: str,
             "requests_per_s": trace.n_requests / res.wall_seconds,
             "schedule_s": st["schedule_s"], "cg_seconds": st["cg_s"],
             "lookup_s": st["lookup_s"], "lookup_calls": st["lookup_calls"],
+            "lookup_bytes_up": st["lookup_bytes_up"],
+            "lookup_table_uploads": st["lookup_table_uploads"],
+            "lookup_table_bytes_up": st["lookup_table_bytes_up"],
             "schedule_rest_s": st["schedule_rest_s"],
             "scan_s": st["scan_s"], "steps": st["steps"],
             "installs": st["installs"], "nb": st["nb"], "ne": st["ne"],
@@ -690,6 +704,9 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
                 {"S": int(S), "h": int(h)})
         for name, (kern, plain, lib, bnd, shape) in cases.items():
             err = held(name, f"captured {cfg}", kern, plain)
+            if name == "packed_lookup":
+                # the path the kernel took on its own buffers just now
+                shape = {**shape, "path": packed_lookup.last_path}
             records.setdefault(name, {})[cfg] = {
                 "shape": shape, "max_abs_err": err,
                 "ms": cuda_time(kern, REPS),
@@ -697,6 +714,9 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
                 "library_ms": cuda_time(lib, REPS) if lib else None,
                 **bnd,
             }
+            if name == "packed_lookup":
+                records[name][cfg].update(
+                    kernel_bench.device_times(kern, lib, REPS))
     print("kernels2 " + json.dumps(report), flush=True)
     return records
 
@@ -787,6 +807,17 @@ def kernels_bench_phase(dev) -> tuple[list, dict]:
                 if not eq:
                     raise AssertionError(f"unpacked_lookup differs from its "
                                          f"plain version at {label}")
+    # every path of the lookups' copy engine, at R 1, 3, 64 and 65,537 in
+    # int32, float32 and float16
+    covered = set()
+    for case in kernel_bench.lookup_cases(dev):
+        for entry in kernel_bench.check_lookup_case(case):
+            report.append(entry)
+            covered.add((entry["kernel"], entry["path"]))
+    missed = {(k, p) for k in ("packed_lookup", "unpacked_lookup")
+              for p in LOOKUP_PATHS} - covered
+    if missed:
+        raise AssertionError(f"lookup paths never checked: {sorted(missed)}")
     items = torch.zeros((10, 4), dtype=torch.float32, device=dev)
     for bad in (-1, 10):
         ids = torch.tensor([[0, bad]], dtype=torch.int32, device=dev)
@@ -869,6 +900,10 @@ def sweep_fig6_phase(trace) -> dict:
         "schedule_s": [b["schedule_s"] for b in eng.last_stats["builds"]],
         "cg_s": [b["cg_s"] for b in eng.last_stats["builds"]],
         "lookup_s": [b["lookup_s"] for b in eng.last_stats["builds"]],
+        "lookup_calls": [b["lookup_calls"]
+                         for b in eng.last_stats["builds"]],
+        "lookup_table_bytes_up": [b["lookup_table_bytes_up"]
+                                  for b in eng.last_stats["builds"]],
         "serial_points": len(sub), "serial_wall_s": ser.last_wall,
         "serial_per_point_s": ser.last_wall / len(sub),
         "launches": launches,
@@ -920,6 +955,10 @@ def sweep_fig10_phase(n_requests: int) -> tuple[dict, dict]:
         "schedule_s": [b["schedule_s"] for b in eng.last_stats["builds"]],
         "cg_s": [b["cg_s"] for b in eng.last_stats["builds"]],
         "lookup_s": [b["lookup_s"] for b in eng.last_stats["builds"]],
+        "lookup_calls": [b["lookup_calls"]
+                         for b in eng.last_stats["builds"]],
+        "lookup_table_bytes_up": [b["lookup_table_bytes_up"]
+                                  for b in eng.last_stats["builds"]],
         "serial_wall_s": ser.last_wall,
         "serial_per_point_s": ser.last_wall / len(pts),
         "launches": launches,

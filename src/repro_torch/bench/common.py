@@ -1,7 +1,9 @@
 """Shared benchmark machinery of the port (its own copies of the reference's
 ``benchmarks/common.py`` helpers), and the card's peak rates for bounds.
 
-Times on the card come from CUDA events (:func:`cuda_time`); a bound is
+Times on the card come from CUDA events, over back-to-back calls
+(:func:`cuda_time`) or over the replay of a CUDA graph of calls, the
+card's time alone (:func:`cuda_graph_time`); a bound is
 the least time the card could take for the same work: the larger of the
 bytes it must move at the HBM rate and the operations it must do at the
 peak rate of their type (:func:`bound`).
@@ -66,6 +68,35 @@ def cuda_time(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_graph_time(fn, calls: int, reps: int = 3) -> float:
+    """Milliseconds per call of ``fn`` on the card alone: a CUDA graph that
+    holds ``calls`` calls, replayed ``reps`` times after a warm-up replay,
+    by CUDA events, over ``reps * calls``.  Back-to-back eager calls
+    (:func:`cuda_time`) read the host's enqueue when a call's kernel is
+    shorter than its Python wrapper; a replay launches the captured
+    kernels with no host in between.  ``fn`` must not sync (no id check,
+    no read back)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * calls)
 
 
 def product_ops(L: torch.Tensor, R: torch.Tensor) -> float:

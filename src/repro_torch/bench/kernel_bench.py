@@ -24,7 +24,19 @@ the larger of the bytes the inputs need (for a lookup: the ids, each
 table row they touch read once, the output written once) at 3.35 TB/s
 and the products' multiply-adds at these inputs at the TF32 peak.  With
 ``--device cpu`` the wrappers run their plain versions and only the
-checks run: no time is taken on the CPU.
+checks run: no time is taken on the CPU.  The lookup rows also give the
+path the copy engine took, ``device_ms`` and ``library_device_ms`` (the
+kernel's and ``index_select``'s time on the card alone, from the replay
+of a CUDA graph of back-to-back calls: at R 64 a call is shorter than its
+wrapper, and ``ms`` reads the host's enqueue), and ``output_memset_ms``,
+a memset of the output's bytes: the write floor every gather of these rows
+shares.
+
+:func:`lookup_cases` builds an input for every path of the lookups' copy
+engine (4- to 16-byte rows, 1 KB rows of a 1 MB table and 5 KB rows of a 15 MB
+one, 5 KB + 4 byte rows, a table and ids at an unaligned offset) at R 1, 3, 64 and 65,537 in int32,
+float32 and float16; :func:`check_lookup_case` holds both lookups on one
+against their plain versions.
 
 :func:`worst_cases` builds the inputs that the sparse designs of
 ``crm_update`` and ``clique_pair_edges`` could get wrong (dense and empty
@@ -41,7 +53,14 @@ import numpy as np
 import torch
 
 from . import common
-from .common import PEAK_FP32, PEAK_TF32, bound, cuda_time, product_ops
+from .common import (
+    PEAK_FP32,
+    PEAK_TF32,
+    bound,
+    cuda_graph_time,
+    cuda_time,
+    product_ops,
+)
 from .. import kernels
 from ..kernels import ops
 
@@ -51,6 +70,19 @@ DENSITY_SHAPES = ((60, 60), (200, 512))
 LOOKUP = (5, 256, 64, 128)
 #: the lookup pair where bytes matter: C cliques, R requests
 BIG_C, BIG_R = 10_000, 65_536
+#: the lookups' row copy engine: (label, row bytes, the path it takes); the
+#: offset cases start the table, or the ids, one element past an aligned
+#: address
+LOOKUP_ROWS = (
+    ("4-byte rows", 4, "narrow"), ("8-byte rows", 8, "narrow"),
+    ("12-byte rows", 12, "narrow"), ("16-byte rows", 16, "narrow"),
+    ("1 KB rows", 1024, "vector"), ("5 KB rows", 5120, "sliced"),
+    ("5 KB + 4 byte rows", 5124, "ragged"),
+    ("1 KB rows, table at an unaligned offset", 1024, "ragged"),
+    ("4-byte rows, ids at an unaligned offset", 4, "ragged"),
+)
+LOOKUP_REQUESTS = (1, 3, 64, 65_537)
+LOOKUP_DTYPES = (torch.int32, torch.float32, torch.float16)
 
 
 def _incidence(rng, rows: int, h: int, ones: int = 5) -> np.ndarray:
@@ -121,9 +153,83 @@ def worst_cases(device, seed: int = 0) -> list[tuple[str, str, tuple]]:
     return cases
 
 
-def _record(name, shape, kern, plain, lib, bnd, dev, reps, **extra) -> dict:
+def lookup_case(row: tuple, R: int, dtype, device, seed: int = 0) -> dict:
+    """One lookup input of a :data:`LOOKUP_ROWS` entry: a (C, omega, d)
+    table of ``row``'s row bytes (omega 5 for the 5 KB rows, else 1; C
+    3,000 of them, 15 MB, more than one slice of the sliced design), the
+    same bytes as (C, omega d) items, R packed ids and (R, 1) unpacked
+    ids, on ``device``."""
+    label, row_bytes, route = row
+    rng = np.random.default_rng([seed, row_bytes, R])
+    dev = torch.device(device)
+    elem = torch.empty((), dtype=dtype).element_size()
+    omega = 5 if row_bytes == 5120 else 1
+    d = row_bytes // elem // omega
+    C = 4096 if row_bytes <= 16 else (3000 if row_bytes == 5120 else 1000)
+    t_off = 1 if "table at" in label else 0
+    i_off = 1 if "ids at" in label else 0
+    vals = rng.standard_normal(C * omega * d + t_off) * 100
+    flat = torch.from_numpy(vals).to(dtype).to(dev)
+    table = flat[t_off:].view(C, omega, d)
+    ids = torch.from_numpy(rng.integers(0, C, R + i_off).astype(np.int32))
+    cids = ids.to(dev)[i_off:]
+    return {"label": f"{label} {dtype} R={R}", "path": route,
+            "table": table, "cids": cids,
+            "items": table.view(C, omega * d), "iids": cids.view(R, 1)}
+
+
+def lookup_cases(device, seed: int = 0):
+    """Every :data:`LOOKUP_ROWS` entry at every :data:`LOOKUP_REQUESTS`
+    and :data:`LOOKUP_DTYPES` (:func:`lookup_case`), one at a time."""
+    for row in LOOKUP_ROWS:
+        for R in LOOKUP_REQUESTS:
+            for dtype in LOOKUP_DTYPES:
+                yield lookup_case(row, R, dtype, device, seed)
+
+
+def check_lookup_case(case: dict) -> list[dict]:
+    """Both lookups on one :func:`lookup_case` input on the card: each
+    kernel must take the case's path and give its plain version's bits,
+    twice in a row.  Returns one report entry a kernel."""
+    table, cids = case["table"], case["cids"]
+    items, iids = case["items"], case["iids"]
+    report = []
+    calls = (("packed_lookup", kernels.packed_lookup, kernels.packed_lookup_plain,
+              table, cids),
+             ("unpacked_lookup", kernels.unpacked_lookup,
+              kernels.unpacked_lookup_plain, items, iids))
+    for name, kern, plain, src, ids in calls:
+        want = plain(src, ids)
+        got = kern(src, ids)
+        path = kern.last_path
+        again = kern(src, ids)
+        for p in (path, kern.last_path):
+            if p != case["path"]:
+                raise AssertionError(f"{name} took the {p} path at "
+                                     f"{case['label']}, not {case['path']}")
+        torch.cuda.synchronize()
+        eq = torch.equal(got, want) and torch.equal(again, want)
+        report.append({"kernel": name, "inputs": case["label"],
+                       "path": path, "equal": eq})
+        if not eq:
+            raise AssertionError(f"{name} ({path}) differs from its plain "
+                                 f"version at {case['label']}")
+    return report
+
+
+def device_times(kern, lib, calls: int) -> dict:
+    """``device_ms`` and ``library_device_ms``: the kernel's and the
+    library call's time on the card alone (:func:`common.cuda_graph_time`
+    over ``calls`` captured calls)."""
+    return {"device_ms": cuda_graph_time(kern, calls),
+            "library_device_ms": cuda_graph_time(lib, calls)}
+
+
+def _record(name, shape, kern, plain, lib, bnd, dev, reps, *,
+            graph_calls: int = 0, **extra) -> dict:
     """Hold ``kern()`` bitwise against ``plain()``; on the card, time the
-    kernel, the plain version and the library call."""
+    kernel, the plain version and the library call (and, given
+    ``graph_calls``, the kernel's and the library call's device time)."""
     got, want = kern(), plain()
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -136,14 +242,20 @@ def _record(name, shape, kern, plain, lib, bnd, dev, reps, **extra) -> dict:
     if dev.type == "cuda":
         rec.update(ms=cuda_time(kern, reps), plain_ms=cuda_time(plain, reps),
                    library_ms=cuda_time(lib, reps))
+        if graph_calls:
+            rec.update(device_times(kern, lib, graph_calls))
     else:
         rec.update(ms=None, plain_ms=None, library_ms=None)
+        if graph_calls:
+            rec.update(device_ms=None, library_device_ms=None)
     return rec
 
 
 def _lookup_pair(label, table, cids, dev, reps) -> list[dict]:
     """packed_lookup of ``table`` at ``cids`` against unpacked_lookup of
-    the same bytes as item rows at the cliques' item ids."""
+    the same bytes as item rows at the cliques' item ids.  On the card
+    each row also gets the path its kernel took, and its and
+    ``index_select``'s device time."""
     C, omega, d = table.shape
     R = int(cids.shape[0])
     items = table.reshape(C * omega, d)
@@ -156,30 +268,44 @@ def _lookup_pair(label, table, cids, dev, reps) -> list[dict]:
     # the output written once
     rows = int(torch.unique(cids).numel())
     out_bytes = float(R * omega * d * elem)
+    # calls a captured graph holds: enough to pass the replay's own cost,
+    # few where one call writes a large output
+    calls = 100 if out_bytes < 64e6 else 10
     # the ids are checked once here; the timed calls skip the check (a
     # device -> host read of the ids' range)
     got_u = ops.gather_unpacked(items, iids)
     got_p = ops.gather_packed(table, cids)
+    paths = {"packed_lookup": kernels.packed_lookup.last_path,
+             "unpacked_lookup": kernels.unpacked_lookup.last_path}
     if not torch.equal(got_u, got_p):
         raise AssertionError(f"unpacked_lookup differs from packed_lookup on "
                              f"the same bytes at {label}")
-    packed = _record(
-        "packed_lookup", {**shape, "config": label},
-        lambda: ops.gather_packed(table, cids, ids_checked=True),
-        lambda: kernels.packed_lookup_plain(table, cids),
-        lambda: table.index_select(0, cids),
-        bound(0.0, PEAK_FP32, 4.0 * R + rows * omega * d * elem + out_bytes),
-        dev, reps, copy_units=R, bytes_per_unit=omega * d * elem)
-    unpacked = _record(
-        "unpacked_lookup", {**shape, "config": label},
-        lambda: ops.gather_unpacked(items, iids, ids_checked=True),
-        lambda: kernels.unpacked_lookup_plain(items, iids),
-        lambda: items.index_select(0, iids.reshape(-1)),
-        bound(0.0, PEAK_FP32,
-              4.0 * R * omega + rows * omega * d * elem + out_bytes),
-        dev, reps, copy_units=R * omega, bytes_per_unit=d * elem)
-    packed["equal_unpacked"] = unpacked["equal_packed"] = True
-    return [packed, unpacked]
+    # the output's bytes written alone (a memset of the same size): the
+    # floor any gather of these rows shares
+    floor = ({"output_memset_ms": cuda_time(lambda: got_p.zero_(), reps)}
+             if dev.type == "cuda" else {})
+    recs = []
+    for name, gather, plain, src, ids, lib_ids, units, unit_bytes in (
+            ("packed_lookup", ops.gather_packed, kernels.packed_lookup_plain,
+             table, cids, cids, R, omega * d * elem),
+            ("unpacked_lookup", ops.gather_unpacked,
+             kernels.unpacked_lookup_plain, items, iids, iids.reshape(-1),
+             R * omega, d * elem)):
+        rec = _record(
+            name, {**shape, "config": label},
+            lambda g=gather, s=src, i=ids: g(s, i, ids_checked=True),
+            lambda p=plain, s=src, i=ids: p(s, i),
+            lambda s=src, i=lib_ids: s.index_select(0, i),
+            bound(0.0, PEAK_FP32,
+                  4.0 * units + rows * omega * d * elem + out_bytes),
+            dev, reps, graph_calls=calls, copy_units=units,
+            bytes_per_unit=unit_bytes, **floor)
+        rec["equal_unpacked" if name == "packed_lookup"
+            else "equal_packed"] = True
+        if dev.type == "cuda":
+            rec["path"] = paths[name]
+        recs.append(rec)
+    return recs
 
 
 def run(device=None, *, big_requests: int = BIG_R, reps: int = 20
@@ -247,6 +373,9 @@ def rows_of(recs: list[dict]) -> list[tuple]:
         derived = (f"equal={r['equal']};plain_us={us('plain_ms')};"
                    f"library_us={us('library_ms')};"
                    f"bound_us={r['bound_ms'] * 1e3:.3f}({r['bound_by']})")
+        if "device_ms" in r:
+            derived += (f";device_us={us('device_ms')};"
+                        f"library_device_us={us('library_device_ms')}")
         if "copy_units" in r:
             derived += (f";copy_units={r['copy_units']};"
                         f"bytes_per_unit={r['bytes_per_unit']}")

@@ -21,7 +21,7 @@ State per clique c and edge storage server j:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Literal
+from typing import Literal
 
 import numpy as np
 
@@ -42,8 +42,9 @@ DEFAULT_BATCH_SIZE = 4096
 
 def _numpy_clique_lookup(clique_of: np.ndarray, items: np.ndarray) -> np.ndarray:
     """The plain host membership gather (``build_schedule``'s default
-    lookup)."""
-    return np.asarray(clique_of)[np.asarray(items)]
+    lookup); -1 padding slots stay -1."""
+    items = np.asarray(items)
+    return np.where(items < 0, -1, np.asarray(clique_of)[np.maximum(items, 0)])
 
 
 @dataclasses.dataclass
@@ -119,20 +120,20 @@ class BatchEvents:
 
 
 def batch_events(
-    clique_of: np.ndarray,
     k: int,
     m: int,
     items: np.ndarray,
     servers: np.ndarray,
     times: np.ndarray,
-    lookup: Callable[[np.ndarray, np.ndarray], np.ndarray],
+    cliques: np.ndarray | None,
     item_sizes: np.ndarray | None,
 ) -> BatchEvents:
     """Construct the deduplicated (request, clique) events of one batch.
 
-    ``items`` (B, d_max) int -1-padded, ``servers`` (B,), ``times`` (B,).
-    ``lookup(clique_of, item_ids)`` maps items to cliques (the
-    ``packed_lookup`` round trip on a device, a host gather otherwise).
+    ``items`` (B, d_max) int -1-padded, ``servers`` (B,), ``times`` (B,);
+    ``cliques`` the clique ids of ``items[items >= 0]`` in that order (the
+    caller's lookup: ``build_schedule`` makes one a partition stretch),
+    None for a batch without valid items.
     """
     B = items.shape[0]
     valid = items >= 0
@@ -150,9 +151,9 @@ def batch_events(
             n_valid=0,
         )
 
-    # --- items -> cliques (the packed_lookup gather) -----------------------
+    # --- items -> cliques (looked up by the caller) ------------------------
     flat_r = np.broadcast_to(np.arange(B)[:, None], items.shape)[valid]
-    cl = np.asarray(lookup(clique_of, items[valid]), dtype=np.int64)
+    cl = np.asarray(cliques, dtype=np.int64)
 
     # --- dedupe (request, clique) pairs, keep |D_i ∩ c| counts ------------
     # unique over packed keys sorts by (request, clique)

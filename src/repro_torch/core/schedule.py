@@ -7,7 +7,8 @@ the policy's clique generation at every boundary, the per-batch
 (request, clique) event construction of
 :func:`~repro_torch.core.engine.batch_events` (dedup, sort orders, lags,
 segment flags; the item -> clique lookup runs through ``packed_lookup``
-on the device), and the partition-install matching.  It is packed into
+on the device, once for each stretch of requests under one partition),
+and the partition-install matching.  It is packed into
 fixed-shape, padded step tensors that :func:`repro_torch.core.replay.run_schedule`
 uploads once and scans on the device.
 
@@ -104,9 +105,11 @@ def build_schedule(
 
     ``next_cg0``/``win_prefix`` support mid-stream continuation (a
     replay resumed with an already-open T_CG window); fresh replays leave
-    them None.  ``lookup`` maps items to cliques (default: the host
-    gather); ``batch_size=None`` cuts each window into event-balanced
-    batches of about ``NE_TARGET`` events.
+    them None.  ``lookup(clique_of, items)`` maps items to cliques
+    (default: the host gather), called once for each stretch of requests
+    between two T_CG boundaries, before the stretch is cut into batches;
+    ``batch_size=None`` cuts each window into event-balanced batches of
+    about ``NE_TARGET`` events.
     """
     n, m = env.n, env.m
     lay = StateLayout.resolve(layout)
@@ -152,12 +155,29 @@ def build_schedule(
     n_requests = 0
     n_item_requests = 0
 
+    # the stretch [look_pos, look_cut) of requests under one partition:
+    # the clique ids of its valid item slots (row-major) from one lookup,
+    # and each row's offset into them
+    look_pos = look_cut = -1
+    look_cl = look_off = None
+
+    def _look_up(pos: int, cut: int) -> None:
+        nonlocal look_pos, look_cut, look_cl, look_off
+        block = np.atleast_2d(items[pos:cut])
+        valid = block >= 0
+        look_cl = lookup(cur.clique_of, block[valid])
+        look_off = np.zeros(cut - pos + 1, np.int64)
+        np.cumsum(valid.sum(axis=1), out=look_off[1:])
+        look_pos, look_cut = pos, cut
+
     def _emit(pos: int, stop: int) -> None:
         nonlocal pending_install, n_requests, n_item_requests
+        cl = None
+        if stop > pos:
+            cl = look_cl[look_off[pos - look_pos]: look_off[stop - look_pos]]
         ev = batch_events(
-            cur.clique_of, cur.k, m,
-            np.atleast_2d(items[pos:stop]), servers[pos:stop],
-            times[pos:stop], lookup,
+            cur.k, m, np.atleast_2d(items[pos:stop]), servers[pos:stop],
+            times[pos:stop], cl,
             item_sizes if csizes_c is not None else None,
         )
         n_requests += stop - pos
@@ -310,6 +330,9 @@ def build_schedule(
                 while next_cg <= t:
                     next_cg += t_cg
                 continue
+        if cut != look_cut:
+            # a new stretch: every boundary moves the cut past the last one
+            _look_up(pos, cut)
         if balanced:
             # split [pos, cut) into equal-EVENT batches (any chunking
             # reproduces the costs at 1e-9, so the device schedule is free

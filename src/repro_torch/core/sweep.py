@@ -274,7 +274,9 @@ class SweepEngine:
             seed_new_cliques=pr["seed"], layout=self.layout)
         self.last_stats["builds"].append({
             "policy": policy.name, "schedule_s": stats["schedule_s"],
-            "cg_s": stats["cg_s"], "lookup_s": stats["lookup_s"]})
+            "cg_s": stats["cg_s"], "lookup_s": stats["lookup_s"],
+            "lookup_calls": stats["lookup_calls"],
+            "lookup_table_bytes_up": stats["lookup_table_bytes_up"]})
         return {
             "schedule": schedule,
             "n_windows": getattr(policy, "n_windows", 0),

@@ -1,8 +1,10 @@
 // Packed-clique gather, out[r] = table[ids[r]] for whole (omega, d) rows,
-// and its unpacked baseline, out[r, o] = items[ids[r, o]] for d-wide rows.
-// The replay uses the packed gather once a request batch as the item ->
-// clique-id lookup (table = clique_of reshaped to (n, 1, 1) int32); the
-// kernel benchmark sets the two against each other.
+// and its unpacked baseline, out[r, o] = items[ids[r, o]] for d-wide rows:
+// both are one row-copy engine, lookup_rows_launch, called with R rows of
+// omega d elements or R omega rows of d elements.  The replay uses the
+// packed gather once a partition stretch as the item -> clique-id lookup
+// (table = clique_of reshaped to (n, 1, 1) int32); the kernel benchmark
+// sets the two against each other.
 //
 // Replaces the TPU kernels repro/kernels/packed_lookup.py::packed_lookup
 // (Pallas body _copy_kernel: one grid step per requested row, the block
@@ -10,26 +12,39 @@
 // row arrives as one DMA) and ::unpacked_lookup (Pallas body
 // _copy_reshape_kernel: one grid step, one DMA, per (request, item)).
 //
-// What bounds them on an H100: bytes.  The packed gather moves R row ids in
-// and R rows out and reads R rows of the table: 4 R + 2 R row_bytes; the
-// unpacked one 4 R omega + 2 R omega d elements.  At the replay's shapes (a
-// few thousand 4-byte rows) that is tens of kilobytes, and the launch sets
-// the time; at (C 10,000, omega 5, d 256) float32 rows and R 65,536 it is
-// 670 MB of traffic, about 0.2 ms at 3.35 TB/s.
+// What bounds them on an H100: bytes.  A gather of `rows` rows moves the
+// ids in, each table row they touch once, and the rows out.  At the
+// replay's shapes (4-byte rows, a window's ids) that is a few megabytes;
+// at (C 10,000, omega 5, d 256) float32 rows and R 65,536 it is the 51 MB
+// table plus a 335 MB output, 0.116 ms at 3.35 TB/s, as long as the
+// table's rows are read from device memory once and then from L2.
 //
-// Design.  Both copy in the widest unit that divides the row size and the
-// alignment of both buffers (16, 8, 4, 2 or 1 bytes), so rows of 16-byte
-// multiples move as 16-byte vectors.  packed_lookup: a grid-stride loop over
-// the output's units, neighbouring threads on neighbouring addresses of one
-// row.  unpacked_lookup: one copy unit per (request, item): a group of
-// threads (a power of two, up to a block, sized to the row) takes one
-// d-wide row, reads its id once and copies the row with copy_row; the
-// block's groups take consecutive (request, item) rows.  That keeps the
-// reference's granularity (R omega row copies against the packed gather's R
-// block copies) without leaving 31 lanes of a warp idle on a short row.
-// Both move bytes only, so each equals the plain PyTorch gather bit for bit.
-// The ids are NOT range-checked here: the caller checks them against
-// [0, C) or [0, n) (on the host where they come from the host), since a
+// Design: the dispatch (route()) picks one of four copy paths by row size,
+// alignment and table size; none divides per copy unit.
+//  * narrow (rows of 4, 8, 12 or 16 bytes, ids and output 16-byte
+//    aligned): a thread takes four consecutive requests, brings their ids
+//    with one 16-byte load, gathers the four rows word by word and writes
+//    them with row_bytes / 4 16-byte stores; the last rows % 4 requests
+//    take a lane each.
+//  * wide (rows of a 16-byte multiple above 16 bytes, table and output
+//    16-byte aligned): the table is read with an L2 evict_last policy and
+//    the output written past it with streaming stores, so that the stores
+//    do not push the table out of the 50 MB L2.  A table of at most one
+//    6 MB slice takes `vector`: a warp a 2 KB piece of a row, 16-byte
+//    loads (ld.global.L2::cache_hint) four a lane in flight, then
+//    streaming stores (st.global.cs).  A larger one takes `sliced`: a warp
+//    a row, the table walked in 6 MB slices by a grid resident at once (a
+//    warp takes 32 requests, copies those in the slice), so that a row the
+//    ids repeat is read from device memory about once even when the table
+//    does not fit L2.  The TPU's one DMA a row has no form here: a ring of
+//    shared-memory stages filled by one cp.async.bulk a row measured
+//    slower than both on the H100 (PERF.md section 6).
+//  * ragged (any other size or alignment): a group of lanes a row, sized to
+//    the row up to a warp, in the widest unit that divides the row size and
+//    both buffers' alignment, with the same cache hints.
+// Every path moves bytes only, so each equals the plain PyTorch gather bit
+// for bit.  The ids are NOT range-checked here: the caller checks them
+// against [0, C) (on the host where they come from the host), since a
 // gather outside the table would read other memory.
 #include "launch.cuh"
 
@@ -38,118 +53,369 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
+// blocks of a grid-stride launch, per SM
+constexpr int kBlocksPerSm = 16;
+// the wide vector design: 16-byte units a lane in flight; requests a warp
+// takes at a time and the table bytes a slice of the sliced form
+constexpr int kUnroll = 4;
+constexpr int kGroup = 32;
+constexpr long long kSliceBytes = 6LL << 20;
+constexpr int kMaxDevices = 64;
 
-template <typename U>
+// the copy paths, as lookup_rows_launch reports them
+enum Path { kNarrow = 0, kVector = 1, kSliced = 2, kRagged = 3 };
+
+// ---- cache hints ----------------------------------------------------------
+
+__device__ __forceinline__ std::uint64_t evict_last_policy() {
+  std::uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+// loads that keep the line in L2 (the table), stores that stream past it
+// (the output), one overload per copy unit
+__device__ __forceinline__ uint4 ld_keep(const uint4* p, std::uint64_t pol) {
+  uint4 v;
+  asm volatile(
+      "ld.global.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3},"
+      " [%4], %5;"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ uint2 ld_keep(const uint2* p, std::uint64_t pol) {
+  uint2 v;
+  asm volatile("ld.global.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ unsigned ld_keep(const unsigned* p,
+                                            std::uint64_t pol) {
+  unsigned v;
+  asm volatile("ld.global.L2::cache_hint.u32 %0, [%1], %2;"
+               : "=r"(v)
+               : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ unsigned short ld_keep(const unsigned short* p,
+                                                  std::uint64_t pol) {
+  unsigned short v;
+  asm volatile("ld.global.L2::cache_hint.u16 %0, [%1], %2;"
+               : "=h"(v)
+               : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ unsigned char ld_keep(const unsigned char* p,
+                                                 std::uint64_t pol) {
+  unsigned short v;
+  asm volatile("ld.global.L2::cache_hint.u8 %0, [%1], %2;"
+               : "=h"(v)
+               : "l"(p), "l"(pol));
+  return static_cast<unsigned char>(v);
+}
+
+__device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};"
+               :: "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void st_stream(uint2* p, uint2 v) {
+  asm volatile("st.global.cs.v2.u32 [%0], {%1, %2};"
+               :: "l"(p), "r"(v.x), "r"(v.y)
+               : "memory");
+}
+__device__ __forceinline__ void st_stream(unsigned* p, unsigned v) {
+  asm volatile("st.global.cs.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_stream(unsigned short* p,
+                                          unsigned short v) {
+  asm volatile("st.global.cs.u16 [%0], %1;" :: "l"(p), "h"(v) : "memory");
+}
+__device__ __forceinline__ void st_stream(unsigned char* p, unsigned char v) {
+  const unsigned short w = v;
+  asm volatile("st.global.cs.u8 [%0], %1;" :: "l"(p), "h"(w) : "memory");
+}
+
+// ---- narrow rows: four requests a thread ----------------------------------
+
+// W 32-bit words a row (row_bytes 4 W); ids and out 16-byte aligned
+template <int W>
 __global__ void __launch_bounds__(kThreads)
-gather_rows(const U* __restrict__ table, const int* __restrict__ ids,
-            U* __restrict__ out, long long row_units, long long total) {
+gather_narrow(const unsigned* __restrict__ table, const int* __restrict__ ids,
+              unsigned* __restrict__ out, long long rows) {
+  const long long quads = rows >> 2;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long e = static_cast<long long>(blockIdx.x) * kThreads +
+  const int4* ids4 = reinterpret_cast<const int4*>(ids);
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  for (long long q = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
-       e < total; e += stride) {
-    const long long r = e / row_units;
-    const long long c = e - r * row_units;
-    out[e] = table[static_cast<long long>(ids[r]) * row_units + c];
+       q < quads; q += stride) {
+    const int4 id = __ldg(ids4 + q);
+    const int r[4] = {id.x, id.y, id.z, id.w};
+    unsigned v[4 * W];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        v[i * W + w] = __ldg(table + static_cast<long long>(r[i]) * W + w);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < W; ++s) {
+      out4[q * W + s] =
+          make_uint4(v[4 * s], v[4 * s + 1], v[4 * s + 2], v[4 * s + 3]);
+    }
+  }
+  // the ragged tail: rows % 4 requests, a lane each
+  const long long r = (quads << 2) + threadIdx.x;
+  if (blockIdx.x == 0 && r < rows) {
+    const long long src = static_cast<long long>(ids[r]) * W;
+#pragma unroll
+    for (int w = 0; w < W; ++w) out[r * W + w] = __ldg(table + src + w);
   }
 }
 
-// one row of `units` elements, copied by the `group` threads whose rank in
-// the group is `lane`: neighbouring lanes on neighbouring addresses
-template <typename U>
-__device__ __forceinline__ void copy_row(const U* __restrict__ src,
-                                         U* __restrict__ dst, long long units,
-                                         int lane, int group) {
-  for (long long c = lane; c < units; c += group) dst[c] = src[c];
+// ---- wide rows, vector design ---------------------------------------------
+
+// units [base, end) of a row by the 32 lanes of a warp, kUnroll loads a
+// lane in flight at a time
+__device__ __forceinline__ void copy_units(const uint4* __restrict__ src,
+                                           uint4* __restrict__ dst,
+                                           int base, int end, int lane,
+                                           std::uint64_t keep) {
+  for (; base < end; base += 32 * kUnroll) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int c = base + u * 32 + lane;
+      if (c < end) v[u] = ld_keep(src + c, keep);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int c = base + u * 32 + lane;
+      if (c < end) st_stream(dst + c, v[u]);
+    }
+  }
 }
 
-// rows = R * omega copy units; group threads (a power of two <= kThreads)
-// per unit
+// a warp a piece of a row: the row's first 32 kUnroll units, or its next,
+// so that a few long rows still spread over many warps
+__global__ void __launch_bounds__(kThreads)
+gather_wide_vector(const uint4* __restrict__ table,
+                   const int* __restrict__ ids, uint4* __restrict__ out,
+                   int row_units, int pieces, long long rows) {
+  constexpr int kPiece = 32 * kUnroll;
+  const int lane = threadIdx.x & 31;
+  const long long nwarps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const std::uint64_t keep = evict_last_policy();
+  for (long long i = (static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x) >> 5;
+       i < rows * pieces; i += nwarps) {
+    const long long r = i / pieces;
+    const int base = static_cast<int>(i - r * pieces) * kPiece;
+    const int end = base + kPiece < row_units ? base + kPiece : row_units;
+    copy_units(table + static_cast<long long>(__ldg(ids + r)) * row_units,
+               out + r * row_units, base, end, lane, keep);
+  }
+}
+
+// The table in slices of slice_rows rows that fit L2 with room to spare:
+// every warp copies the requests of slice 0, then of slice 1, ..., so the
+// resident grid reads one slice at a time and each touched row comes from
+// device memory about once, however many requests repeat it.  A warp
+// takes kGroup consecutive requests at a time: their ids in one load, a
+// ballot of those in the slice, then one row copy each.
+__global__ void __launch_bounds__(kThreads)
+gather_wide_sliced(const uint4* __restrict__ table,
+                   const int* __restrict__ ids, uint4* __restrict__ out,
+                   int row_units, long long rows, int slice_rows,
+                   int slices) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = (static_cast<long long>(blockIdx.x) * kThreads +
+                          threadIdx.x) >> 5;
+  const long long nwarps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const std::uint64_t keep = evict_last_policy();
+  for (int s = 0; s < slices; ++s) {
+    const int lo = s * slice_rows;
+    const int hi = lo + slice_rows;
+    for (long long base = warp * kGroup; base < rows;
+         base += nwarps * kGroup) {
+      const long long r = base + lane;
+      const int id = (lane < kGroup && r < rows) ? __ldg(ids + r) : -1;
+      unsigned hit = __ballot_sync(0xffffffffu, id >= lo && id < hi);
+      while (hit) {
+        const int j = __ffs(hit) - 1;
+        hit &= hit - 1;
+        const int src = __shfl_sync(0xffffffffu, id, j);
+        copy_units(table + static_cast<long long>(src) * row_units,
+                   out + (base + j) * row_units, 0, row_units, lane, keep);
+      }
+    }
+  }
+}
+
+// ---- ragged rows: a group of lanes a row -----------------------------------
+
 template <typename U>
 __global__ void __launch_bounds__(kThreads)
-gather_items(const U* __restrict__ items, const int* __restrict__ ids,
-             U* __restrict__ out, long long row_units, long long rows,
-             int group) {
+gather_ragged(const U* __restrict__ table, const int* __restrict__ ids,
+              U* __restrict__ out, long long row_units, long long rows,
+              int shift) {
+  const int group = 1 << shift;
   const int lane = threadIdx.x & (group - 1);
-  const long long per_pass =
-      static_cast<long long>(gridDim.x) * (kThreads / group);
-  for (long long row = (static_cast<long long>(blockIdx.x) * kThreads +
-                        threadIdx.x) / group;
-       row < rows; row += per_pass) {
-    copy_row(items + static_cast<long long>(ids[row]) * row_units,
-             out + row * row_units, row_units, lane, group);
+  const long long per_pass = (static_cast<long long>(gridDim.x) * kThreads)
+                             >> shift;
+  const std::uint64_t keep = evict_last_policy();
+  for (long long r = (static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x) >> shift;
+       r < rows; r += per_pass) {
+    const U* src = table + static_cast<long long>(__ldg(ids + r)) * row_units;
+    U* dst = out + r * row_units;
+    for (long long c = lane; c < row_units; c += group) {
+      st_stream(dst + c, ld_keep(src + c, keep));
+    }
   }
 }
 
+// ---- dispatch ---------------------------------------------------------------
+
+// what a launch needs to know of the current device, looked up once a device
+struct Device {
+  int sms = 0;            // streaming multiprocessors
+  int sliced_per_sm = 0;  // gather_wide_sliced blocks resident on one
+};
+
+cudaError_t current_device(Device** info) {
+  static Device devices[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Device& d = devices[dev];
+  if (d.sms == 0) {
+    int sms = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &d.sliced_per_sm, gather_wide_sliced, kThreads, 0);
+    if (e != cudaSuccess) return e;
+    d.sms = sms;
+  }
+  *info = &d;
+  return cudaSuccess;
+}
+
+int blocks_for(const Device& dev, long long work, long long per_block) {
+  const long long most = static_cast<long long>(dev.sms) * kBlocksPerSm;
+  const long long want = (work + per_block - 1) / per_block;
+  return static_cast<int>(want < 1 ? 1 : (want < most ? want : most));
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
+}
+
+Path route(const void* table, long long table_rows, const int* ids,
+           const void* out, long long row_bytes) {
+  if (row_bytes <= 16 && row_bytes % 4 == 0 && aligned(table, 4) &&
+      aligned(ids, 16) && aligned(out, 16)) {
+    return kNarrow;
+  }
+  if (row_bytes % 16 == 0 && aligned(table, 16) && aligned(out, 16)) {
+    return table_rows * row_bytes > kSliceBytes ? kSliced : kVector;
+  }
+  return kRagged;
+}
+
 template <typename U>
-int launch(const void* table, const int* ids, void* out, int R,
-           long long row_bytes, cudaStream_t stream) {
+int launch_ragged(const Device& dev, const void* table, const int* ids,
+                  void* out, long long rows, long long row_bytes,
+                  cudaStream_t stream) {
   const long long row_units = row_bytes / static_cast<long long>(sizeof(U));
-  const long long total = row_units * R;
-  const long long want = (total + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
-  gather_rows<U><<<blocks, kThreads, 0, stream>>>(
+  int shift = 0;
+  while (shift < 5 && (1LL << shift) < row_units) ++shift;
+  gather_ragged<U><<<blocks_for(dev, rows, kThreads >> shift), kThreads, 0,
+                     stream>>>(
       static_cast<const U*>(table), ids, static_cast<U*>(out), row_units,
-      total);
+      rows, shift);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename U>
-int launch_items(const void* items, const int* ids, void* out, long long rows,
-                 long long row_bytes, cudaStream_t stream) {
-  const long long row_units = row_bytes / static_cast<long long>(sizeof(U));
-  int group = 1;
-  while (group < kThreads && group < row_units) group <<= 1;
-  const long long per_block = kThreads / group;
-  const long long want = (rows + per_block - 1) / per_block;
-  const int blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
-  gather_items<U><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const U*>(items), ids, static_cast<U*>(out), row_units,
-      rows, group);
+// the sliced vector form on a grid that is resident at once, so that all
+// warps walk the slices together
+int launch_sliced(const Device& dev, const void* table, long long table_rows,
+                  const int* ids, void* out, long long rows,
+                  long long row_bytes, cudaStream_t stream) {
+  long long slice_rows = kSliceBytes / row_bytes;
+  if (slice_rows < 1) slice_rows = 1;
+  if (slice_rows > table_rows) slice_rows = table_rows;
+  const long long slices = (table_rows + slice_rows - 1) / slice_rows;
+  const int most = dev.sms * dev.sliced_per_sm;
+  const long long want = (rows + kGroup * (kThreads / 32) - 1) /
+                         (kGroup * (kThreads / 32));
+  const int blocks = static_cast<int>(want < most ? want : most);
+  gather_wide_sliced<<<blocks, kThreads, 0, stream>>>(
+      static_cast<const uint4*>(table), ids, static_cast<uint4*>(out),
+      static_cast<int>(row_bytes / 16), rows, static_cast<int>(slice_rows),
+      static_cast<int>(slices));
   return static_cast<int>(cudaGetLastError());
-}
-
-// the widest copy unit that divides the row size and both buffers' alignment
-int unit_bytes(const void* src, const void* dst, long long row_bytes) {
-  const auto align = reinterpret_cast<std::uintptr_t>(src) |
-                     reinterpret_cast<std::uintptr_t>(dst) |
-                     static_cast<std::uintptr_t>(row_bytes);
-  for (int u = 16; u > 1; u >>= 1) {
-    if (align % u == 0) return u;
-  }
-  return 1;
 }
 
 }  // namespace
 
-// table (C, row_bytes) of any element type, ids (R,) int32 in [0, C),
-// out (R, row_bytes)
-extern "C" int packed_lookup_launch(const void* table, const int* ids,
-                                    void* out, int R, long long row_bytes,
-                                    cudaStream_t stream) {
-  if (R <= 0 || row_bytes <= 0) return static_cast<int>(cudaGetLastError());
-  switch (unit_bytes(table, out, row_bytes)) {
-    case 16: return launch<uint4>(table, ids, out, R, row_bytes, stream);
-    case 8: return launch<uint2>(table, ids, out, R, row_bytes, stream);
-    case 4: return launch<unsigned int>(table, ids, out, R, row_bytes, stream);
-    case 2: return launch<unsigned short>(table, ids, out, R, row_bytes, stream);
-    default: return launch<unsigned char>(table, ids, out, R, row_bytes, stream);
-  }
-}
-
-// items (n, row_bytes) of any element type, ids (R, omega) int32 in [0, n)
-// flattened to rows = R * omega, out (R, omega, row_bytes)
-extern "C" int unpacked_lookup_launch(const void* items, const int* ids,
-                                      void* out, long long rows,
-                                      long long row_bytes,
-                                      cudaStream_t stream) {
+// table (table_rows, row_bytes) of any element type, ids (rows,) int32 in
+// [0, table_rows), out (rows, row_bytes).  Writes the copy path it takes
+// to *path (0 narrow, 1 vector, 2 sliced, 3 ragged; -1 when there is
+// nothing to copy) and returns the launch's CUDA error code.
+extern "C" int lookup_rows_launch(const void* table, long long table_rows,
+                                  const int* ids, void* out, long long rows,
+                                  long long row_bytes, int* path,
+                                  cudaStream_t stream) {
+  *path = -1;
   if (rows <= 0 || row_bytes <= 0) return static_cast<int>(cudaGetLastError());
-  switch (unit_bytes(items, out, row_bytes)) {
-    case 16: return launch_items<uint4>(items, ids, out, rows, row_bytes, stream);
-    case 8: return launch_items<uint2>(items, ids, out, rows, row_bytes, stream);
-    case 4: return launch_items<unsigned int>(items, ids, out, rows, row_bytes, stream);
-    case 2: return launch_items<unsigned short>(items, ids, out, rows, row_bytes, stream);
-    default: return launch_items<unsigned char>(items, ids, out, rows, row_bytes, stream);
+  Device* dev = nullptr;
+  const cudaError_t e = current_device(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Path p = route(table, table_rows, ids, out, row_bytes);
+  *path = p;
+  switch (p) {
+    case kNarrow: {
+      const auto* t = static_cast<const unsigned*>(table);
+      auto* o = static_cast<unsigned*>(out);
+      const int blocks = blocks_for(*dev, rows >> 2, kThreads);
+      switch (row_bytes / 4) {
+        case 1: gather_narrow<1><<<blocks, kThreads, 0, stream>>>(t, ids, o, rows); break;
+        case 2: gather_narrow<2><<<blocks, kThreads, 0, stream>>>(t, ids, o, rows); break;
+        case 3: gather_narrow<3><<<blocks, kThreads, 0, stream>>>(t, ids, o, rows); break;
+        default: gather_narrow<4><<<blocks, kThreads, 0, stream>>>(t, ids, o, rows); break;
+      }
+      return static_cast<int>(cudaGetLastError());
+    }
+    case kSliced:
+      return launch_sliced(*dev, table, table_rows, ids, out, rows, row_bytes,
+                           stream);
+    case kVector: {
+      const int row_units = static_cast<int>(row_bytes / 16);
+      const int pieces = (row_units + 32 * kUnroll - 1) / (32 * kUnroll);
+      gather_wide_vector<<<blocks_for(*dev, rows * pieces, kThreads / 32),
+                           kThreads, 0, stream>>>(
+          static_cast<const uint4*>(table), ids, static_cast<uint4*>(out),
+          row_units, pieces, rows);
+      return static_cast<int>(cudaGetLastError());
+    }
+    default: {
+      const auto a = reinterpret_cast<std::uintptr_t>(table) |
+                     reinterpret_cast<std::uintptr_t>(out) |
+                     static_cast<std::uintptr_t>(row_bytes);
+      if (a % 16 == 0) return launch_ragged<uint4>(*dev, table, ids, out, rows, row_bytes, stream);
+      if (a % 8 == 0) return launch_ragged<uint2>(*dev, table, ids, out, rows, row_bytes, stream);
+      if (a % 4 == 0) return launch_ragged<unsigned>(*dev, table, ids, out, rows, row_bytes, stream);
+      if (a % 2 == 0) return launch_ragged<unsigned short>(*dev, table, ids, out, rows, row_bytes, stream);
+      return launch_ragged<unsigned char>(*dev, table, ids, out, rows, row_bytes, stream);
+    }
   }
 }
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.bench import kernel_bench
 from repro_torch.bench.kernel_bench import worst_cases
 from repro_torch.core import (
     CacheEnvironment,
@@ -41,6 +42,7 @@ from repro_torch.kernels import (
     unpacked_lookup,
     unpacked_lookup_plain,
 )
+from repro_torch.kernels.packed_lookup import CliqueLookup, clique_lookup
 from repro_torch.traces import SynthConfig, synth_trace
 
 #: the kernels of the AKPC replay with the device clique generation
@@ -377,3 +379,79 @@ def test_super_group_and_shard_sweep_on_card_equals_cpu(cuda_device):
     assert gpu[2].shard_stats["n"] == 3
     np.testing.assert_allclose(gpu[2].shard_stats["totals"],
                                cpu[2].shard_stats["totals"], rtol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", kernel_bench.LOOKUP_DTYPES)
+@pytest.mark.parametrize("R", kernel_bench.LOOKUP_REQUESTS)
+@pytest.mark.parametrize("row", kernel_bench.LOOKUP_ROWS,
+                         ids=[r[0] for r in kernel_bench.LOOKUP_ROWS])
+def test_lookup_paths_equal_plain(cuda_device, row, R, dtype):
+    """Both lookups on each path of their copy engine (narrow 4- to
+    16-byte rows, vector 1 KB rows of a 1 MB table, sliced 5 KB rows of a
+    15 MB one, ragged 5 KB + 4 byte rows and unaligned tables or ids) take
+    the expected path and give the plain version's bits twice in a row."""
+    case = kernel_bench.lookup_case(row, R, dtype, cuda_device)
+    n0, u0 = packed_lookup.launches, unpacked_lookup.launches
+    report = kernel_bench.check_lookup_case(case)
+    assert all(r["equal"] for r in report)
+    assert [r["path"] for r in report] == [row[2], row[2]]
+    assert packed_lookup.launches == n0 + 2
+    assert unpacked_lookup.launches == u0 + 2
+
+
+@pytest.mark.parametrize("row", [kernel_bench.LOOKUP_ROWS[i]
+                                 for i in (0, 2, 4, 5, 6)],
+                         ids=["4-byte", "12-byte", "1 KB", "5 KB", "5 KB + 4"])
+def test_lookup_in_cuda_graph_equals_eager(cuda_device, row):
+    """A lookup captured in a CUDA graph equals the eager call, and a
+    replay after the ids change in place gathers the new rows."""
+    case = kernel_bench.lookup_case(row, 777, torch.float32, cuda_device)
+    table, cids = case["table"], case["cids"].clone()
+    items, iids = case["items"], cids.view(-1, 1)
+    eager = (packed_lookup(table, cids), unpacked_lookup(items, iids))
+    assert (packed_lookup.last_path, unpacked_lookup.last_path) == \
+        (row[2], row[2])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        packed_lookup(table, cids, ids_checked=True)
+        unpacked_lookup(items, iids, ids_checked=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = (packed_lookup(table, cids, ids_checked=True),
+               unpacked_lookup(items, iids, ids_checked=True))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])
+    cids.copy_(torch.flip(cids, (0,)))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], packed_lookup_plain(table, cids))
+    assert torch.equal(got[1], unpacked_lookup_plain(items, iids))
+
+
+def test_clique_lookup_on_card(cuda_device):
+    """``clique_lookup`` and ``CliqueLookup`` with no device run on the
+    card: the answers of the CPU, the table uploaded once while it stays
+    the same and again after a change in place, -1 pads kept."""
+    rng = np.random.default_rng(5)
+    clique_of = rng.permutation(10_000).astype(np.int64)
+    items = rng.integers(-1, 10_000, size=(4001, 5))
+    want = clique_lookup(clique_of, items, device="cpu")
+    assert np.array_equal(clique_lookup(clique_of, items), want)
+    look = CliqueLookup()
+    assert look.device.type == "cuda"
+    n0 = packed_lookup.launches
+    for _ in range(3):
+        assert np.array_equal(look(clique_of, items), want)
+    assert packed_lookup.launches == n0 + 3
+    assert packed_lookup.last_path == "narrow"
+    assert look.table_uploads == 1
+    clique_of[items[0, 0]] = 77_777
+    got = look(clique_of, items)
+    assert look.table_uploads == 2
+    assert np.array_equal(got, clique_lookup(clique_of, items, device="cpu"))
+    assert (got[items < 0] == -1).all()
+    small = look(clique_of, items[:3])
+    assert np.array_equal(small, got[:3])

@@ -126,7 +126,7 @@ def test_clique_lookup_equals_reference(n, shape):
     rng = np.random.default_rng(n)
     clique_of = rng.permutation(n).astype(np.int32)
     items = rng.integers(-1, n, size=shape)
-    got = clique_lookup(clique_of, items)
+    got = clique_lookup(clique_of, items, device="cpu")
     want = ref_clique_lookup(clique_of, items)
     assert np.array_equal(got, want)
     with jax.enable_x64(True):
@@ -140,4 +140,5 @@ def test_clique_lookup_equals_reference(n, shape):
 
 def test_clique_lookup_refuses_ids_outside_catalog():
     with pytest.raises(IndexError):
-        clique_lookup(np.arange(5, dtype=np.int32), np.array([0, 5]))
+        clique_lookup(np.arange(5, dtype=np.int32), np.array([0, 5]),
+                      device="cpu")
