@@ -29,7 +29,8 @@
    ``dp_greedy``; ``hetero-catalog-10k`` with ``akpc``; and ``no_packing``
    under table1 on ``netflix-table2`` (uniform dt: the scan kernels must
    stay idle).  Each run: kernels on the card, every expected kernel
-   launched, at most one item -> clique lookup a partition stretch
+   launched (under per-server dt one ``seg_scan_step`` a live step and no
+   standalone scan), at most one item -> clique lookup a partition stretch
    (windows + 1), plain versions on the card (no launch), equal state and
    costs, a CPU head equal to the card's;
 6. ``kernels_bench``: the kernel benchmark (``python -m
@@ -51,9 +52,12 @@
    launch; every point against a serial card run;
 9. holds the scan and gather kernels (and the CGM kernels at the host
    clique generation's shapes) against their plain versions on inputs
-   captured from those replays (the scans also in the sweep's lane form)
-   and on ragged ones, and times them (the lookups also on the card alone:
-   ``device_ms`` and ``library_device_ms``, from a CUDA graph of calls);
+   captured from those replays (the scans also in the sweep's lane form;
+   ``seg_scan_step``, the replay step's one launch for both scans, on the
+   captured step and on ragged and lane cases) and on ragged ones, and
+   times them, every captured input also on the card alone (``device_ms``
+   and ``library_device_ms``, from a CUDA graph of calls; the CGM
+   kernels' captured inputs too);
 10. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
@@ -78,7 +82,6 @@ import torch  # noqa: E402
 from repro_torch.bench import kernel_bench  # noqa: E402
 from repro_torch.bench.common import (  # noqa: E402
     PEAK_FP32,
-    PEAK_FP64,
     PEAK_TF32,
     bound,
     cuda_time,
@@ -127,6 +130,8 @@ from repro_torch.kernels import (  # noqa: E402
     seg_running_argmax_plain,
     seg_running_max,
     seg_running_max_plain,
+    seg_scan_step,
+    seg_scan_step_plain,
     unpacked_lookup,
     unpacked_lookup_plain,
 )
@@ -157,8 +162,12 @@ CGM_KERNELS = ("crm_update", "clique_pair_edges", "merge_density")
 #: a captured input: at 10-50 us a call, fewer would sit inside the host's
 #: jitter
 REPS = 100
-#: the scan kernels of the host-schedule replay under per-server dt
+#: the standalone scan kernels, and the one launch of both that the
+#: host-schedule replay makes a step under per-server dt
 SEG_KERNELS = ("seg_running_argmax", "seg_running_max")
+STEP = "seg_scan_step"
+#: servers of the ragged and lane step checks' dt (hetero-table2's m)
+STEP_SERVERS = 600
 #: requests of each configuration's head that also run on the CPU
 HEAD = {"netflix-table2": 20_000, "catalog-10k": 5_000,
         "hetero-table2": 20_000, "hetero-catalog-10k": 5_000}
@@ -382,6 +391,7 @@ def kernel_phase(shapes: dict, captured: dict, seed: int, dev
                 "ms": cuda_time(kern, REPS),
                 "plain_ms": cuda_time(plain, REPS),
                 "library_ms": cuda_time(lib, REPS) if lib else None,
+                **kernel_bench.device_times(kern, lib, REPS),
                 **bnd,
             }
     worst = worst_phase(report, seed, dev)
@@ -524,20 +534,24 @@ def slice2_phase(config: str, trace, names, cost_model: str,
         if name == capture_name:
             captured = {k: v[1] for k, v in capture.INPUTS.items()}
             capture.INPUTS = None
-        expect = ["packed_lookup"] + (list(SEG_KERNELS) if per_server
-                                      else [])
+        expect = ["packed_lookup"]
         if name == "akpc":
             expect += ["crm_update", "clique_pair_edges"]
         for k in expect:
             if launches[k] <= 0:
                 raise AssertionError(f"{config}/{name}: kernel {k} never "
                                      "launched")
-        if not per_server and any(launches[k] for k in SEG_KERNELS):
-            raise AssertionError(f"{config}/{name}: a scan kernel launched "
-                                 "at a uniform dt")
-        if res.loop_stats.get("path") != "host_schedule":
+        st = res.loop_stats
+        if st.get("path") != "host_schedule":
             raise AssertionError(f"{config}/{name} did not take the "
                                  "host-schedule replay")
+        want_scans = st["steps"] if per_server else 0
+        if launches[STEP] != want_scans or any(launches[k]
+                                               for k in SEG_KERNELS):
+            raise AssertionError(
+                f"{config}/{name}: {launches[STEP]} seg_scan_step launches "
+                f"for {st['steps']} steps (per-server dt {per_server}), "
+                f"standalone {[launches[k] for k in SEG_KERNELS]}")
         plain = run_policy_torch(host_policy(name, t_cg, env, cost_model),
                                  trace, use_kernels=False)
         if any(fn.launches != launches[k] for k, fn in KERNELS.items()):
@@ -549,7 +563,6 @@ def slice2_phase(config: str, trace, names, cost_model: str,
             raise AssertionError(f"total cost {total} is not positive")
         if res.costs.n_requests != trace.n_requests:
             raise AssertionError("the replay did not cover the trace")
-        st = res.loop_stats
         if st["lookup_calls"] > res.n_windows + 1:
             raise AssertionError(
                 f"{config}/{name}: {st['lookup_calls']} lookups for "
@@ -574,6 +587,7 @@ def slice2_phase(config: str, trace, names, cost_model: str,
             "installs": st["installs"], "nb": st["nb"], "ne": st["ne"],
             "sync_scan": st["sync_scan"], "sync_final": st["sync_final"],
             "sync_checked_steps": sync_steps,
+            "seg_scan_launches": launches[STEP],
             "launches": launches, "plain_wall_s": plain.wall_seconds,
             "cpu_head_requests": head.n_requests,
             "cpu_head_windows": cpu_head.n_windows,
@@ -603,7 +617,8 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
     """The scan and gather kernels, and the CGM kernels at the host clique
     generation's shapes: bitwise against their plain versions on inputs
     captured from the replays and on ragged ones; timed on the captured
-    inputs.  Returns timing records by kernel and configuration."""
+    inputs, also on the card alone.  Returns timing records by kernel and
+    configuration."""
     rng = np.random.default_rng(seed)
     report: list = []
     records: dict = {}
@@ -620,6 +635,10 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
                  lambda: seg_running_argmax_plain(v, s))
             held("seg_running_max", label, lambda: seg_running_max(v, s),
                  lambda: seg_running_max_plain(v, s))
+            args = kernel_bench.scan_step_inputs(rng, 1, L, starts,
+                                                 STEP_SERVERS, dev)
+            held(STEP, label, lambda: seg_scan_step(*args),
+                 lambda: seg_scan_step_plain(*args))
     # the sweep's lane form: (S, L) values over one shared (L,) start vector,
     # against the plain version and against the one-lane kernel per lane
     for S, L in LANE_CASES:
@@ -636,6 +655,10 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
              lambda: seg_running_max(v, s),
              lambda: torch.stack([seg_running_max(v[i].contiguous(), s)
                                   for i in range(S)]))
+        args = kernel_bench.scan_step_inputs(rng, S, L, "0.01", STEP_SERVERS,
+                                             dev)
+        held(STEP, label, lambda: seg_scan_step(*args),
+             lambda: seg_scan_step_plain(*args))
     for (C, om, d, R, dtype) in ((4096, 5, 128, 4096, torch.float32),
                                  (4096, 5, 128, 777, torch.float64),
                                  (61, 1, 1, 9999, torch.int32),
@@ -650,24 +673,35 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
 
     for cfg, cap in captured.items():
         cases = {}
-        # the scans' values are (S, L): S scenario lanes over one (L,)
-        # start vector (S = 1 outside a sweep)
-        if "seg_running_argmax" in cap:
-            v, s = cap["seg_running_argmax"]
-            S, L = v.shape
-            cases["seg_running_argmax"] = (
-                lambda v=v, s=s: seg_running_argmax(v, s),
-                lambda v=v, s=s: seg_running_argmax_plain(v, s), None,
-                bound(float(S * L), PEAK_FP64, S * L * (8.0 + 8 + 4) + L),
-                {"S": S, "L": L, "segments": int(s.sum())})
-        if "seg_running_max" in cap:
-            v, s = cap["seg_running_max"]
-            S, L = v.shape
-            cases["seg_running_max"] = (
-                lambda v=v, s=s: seg_running_max(v, s),
-                lambda v=v, s=s: seg_running_max_plain(v, s), None,
-                bound(float(S * L), PEAK_FP64, S * L * (8.0 + 8) + L),
-                {"S": S, "L": L, "segments": int(s.sum())})
+        # the scans: the step's one launch, and each standalone kernel on
+        # its (S, L) operand (S = 1 outside a sweep); torch.cummax is their
+        # unsegmented yardstick
+        for name, kern, plain in (
+                ("seg_running_argmax", seg_running_argmax,
+                 seg_running_argmax_plain),
+                ("seg_running_max", seg_running_max, seg_running_max_plain)):
+            if name in cap:
+                v, s = cap[name]
+                S, L = v.shape
+                cases[name] = (
+                    lambda k=kern, v=v, s=s: k(v, s),
+                    lambda p=plain, v=v, s=s: p(v, s),
+                    lambda v=v: torch.cummax(v, dim=-1),
+                    kernel_bench.scan_bound(name, S, L),
+                    {"S": S, "L": L, "segments": int(s.sum())})
+        if STEP in cap:
+            args = cap[STEP]
+            S, m = args[-1].shape
+            L = int(args[0].shape[0])
+            both = torch.stack([args[0] + args[-1][:, args[1]],
+                                args[3] + args[-1][:, args[4]]])
+            cases[STEP] = (
+                lambda a=args: seg_scan_step(*a),
+                lambda a=args: seg_scan_step_plain(*a),
+                lambda b=both: torch.cummax(b, dim=-1),
+                kernel_bench.scan_bound(STEP, S, L, m),
+                {"S": S, "L": L, "m": int(m),
+                 "segments": [int(args[2].sum()), int(args[5].sum())]})
         if "packed_lookup" in cap:
             clique_of, items = cap["packed_lookup"]
             table = torch.from_numpy(clique_of.astype(np.int32)).reshape(
@@ -707,16 +741,16 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
             if name == "packed_lookup":
                 # the path the kernel took on its own buffers just now
                 shape = {**shape, "path": packed_lookup.last_path}
-            records.setdefault(name, {})[cfg] = {
+            rec = records.setdefault(name, {})[cfg] = {
                 "shape": shape, "max_abs_err": err,
                 "ms": cuda_time(kern, REPS),
                 "plain_ms": cuda_time(plain, REPS),
                 "library_ms": cuda_time(lib, REPS) if lib else None,
                 **bnd,
             }
-            if name == "packed_lookup":
-                records[name][cfg].update(
-                    kernel_bench.device_times(kern, lib, REPS))
+            rec.update(kernel_bench.device_times(kern, lib, REPS))
+            if name in SEG_KERNELS or name == STEP:
+                rec["library_call"] = kernel_bench.SCAN_YARDSTICK
     print("kernels2 " + json.dumps(report), flush=True)
     return records
 
@@ -856,7 +890,7 @@ def sweep_fig6_phase(trace) -> dict:
     for k in ("packed_lookup", "crm_update", "clique_pair_edges"):
         if launches[k] <= 0:
             raise AssertionError(f"sweep fig6: kernel {k} never launched")
-    if any(launches[k] for k in SEG_KERNELS):
+    if any(launches[k] for k in (*SEG_KERNELS, STEP)):
         raise AssertionError("sweep fig6: a scan kernel launched at a "
                              "uniform dt")
     if eng.last_n_schedules != want_schedules:
@@ -927,13 +961,19 @@ def sweep_fig10_phase(n_requests: int) -> tuple[dict, dict]:
     swept = eng.run(pts)
     launches = {k: fn.launches for k, fn in KERNELS.items()}
     captured = {k: v[1] for k, v in capture.INPUTS.items()
-                if k in SEG_KERNELS}
+                if k in (*SEG_KERNELS, STEP)}
     capture.INPUTS = None
     groups = eng.last_stats["groups"]
     lanes = [g["lanes"] for g in groups if not g["const_dt"]]
-    for k in (*SEG_KERNELS, "packed_lookup"):
+    for k in (STEP, "packed_lookup"):
         if launches[k] <= 0:
             raise AssertionError(f"sweep fig10: kernel {k} never launched")
+    live = sum(g["steps"] for g in groups if not g["const_dt"])
+    if launches[STEP] != live or any(launches[k] for k in SEG_KERNELS):
+        raise AssertionError(
+            f"sweep fig10: {launches[STEP]} seg_scan_step launches for {live} "
+            f"per-server-dt steps, standalone "
+            f"{[launches[k] for k in SEG_KERNELS]}")
     if not lanes or max(lanes) < 2:
         raise AssertionError("sweep fig10 ran no per-server-dt group with "
                              "more than one lane")
@@ -961,6 +1001,7 @@ def sweep_fig10_phase(n_requests: int) -> tuple[dict, dict]:
                                   for b in eng.last_stats["builds"]],
         "serial_wall_s": ser.last_wall,
         "serial_per_point_s": ser.last_wall / len(pts),
+        "seg_scan_launches": launches[STEP],
         "launches": launches,
         "totals": {p.tag: r.total for p, r in zip(pts, swept)},
     }
@@ -1102,8 +1143,8 @@ def main() -> int:
 
     main_cfg, main_cfg2 = "catalog-10k", "hetero-table2"
     kernels = []
-    for name in KERNELS:
-        src, replaces = SOURCES[name]
+    for name, (src, replaces) in SOURCES.items():
+        extra: dict = {}
         if name in CGM_KERNELS:
             rec = dict(records[main_cfg][name])
             launches = results[main_cfg]["launches"][name]
@@ -1122,30 +1163,43 @@ def main() -> int:
             by_config = {f"kernel_bench {r['shape']['config']}":
                          {**r, "launches": launches} for r in brecs}
         else:
+            # the replay launches both scans' device code as seg_scan_step,
+            # one launch a step: its count and its record stand beside each
+            # standalone scan's
+            counter = STEP if name in SEG_KERNELS else name
             rec = dict(records2[name][main_cfg2])
-            launches = results2[main_cfg2]["akpc"]["launches"][name]
+            launches = results2[main_cfg2]["akpc"]["launches"][counter]
             by_config = {}
             for c, r in records2[name].items():
                 runs = results2.get(c)
-                n_l = (runs["akpc"]["launches"][name] if runs
-                       else fig10["launches"][name])
+                n_l = (runs["akpc"]["launches"][counter] if runs
+                       else fig10["launches"][counter])
                 by_config[c] = {**r, "launches": n_l}
+                if counter == STEP:
+                    by_config[c][STEP] = records2[STEP][c]
             for key, runs in results2.items():
                 for pol, line in runs.items():
                     by_config.setdefault(f"{key} {pol}", {})["launches"] = \
-                        line["launches"][name]
+                        line["launches"][counter]
             by_config.setdefault("sweep-fig6", {})["launches"] = \
-                fig6["launches"][name]
+                fig6["launches"][counter]
             by_config.setdefault("sweep-fig10", {})["launches"] = \
-                fig10["launches"][name]
-            if name == "packed_lookup":
-                for r in bench_recs:
-                    if r["name"] == name:
-                        by_config[f"kernel_bench {r['shape']['config']}"] = {
-                            **r, "launches": bench_launches[name]}
+                fig10["launches"][counter]
+            for r in bench_recs:
+                if r["name"] in (name, counter):
+                    sh = r["shape"]
+                    tag = (sh["config"] if "config" in sh else
+                           f"{r['name']} S={sh['S']} L={sh['L']} "
+                           f"starts={sh['starts']}")
+                    by_config[f"kernel_bench {tag}"] = {
+                        **r, "launches": bench_launches[r["name"]]}
+            if counter == STEP:
+                extra = {"launched_as": STEP,
+                         "standalone_launches": bench_launches[name],
+                         STEP: records2[STEP][main_cfg2]}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches, **rec,
+            "replaces": replaces, "launches": launches, **rec, **extra,
             "by_config": by_config,
         })
     print(f"phase total: {time.perf_counter() - t_all:.3f} s", flush=True)

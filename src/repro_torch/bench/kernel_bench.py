@@ -13,7 +13,15 @@ reference's order):
   copy per clique (R copy units) against one per item (R omega);
 
 and one lookup pair where bytes matter: C 10,000 cliques (catalog-10k's
-n), omega 5, d 256, float32, R 65,536 (a 51 MB table, a 335 MB output).
+n), omega 5, d 256, float32, R 65,536 (a 51 MB table, a 335 MB output);
+
+and the replay step's scans at (S, L) = (1, 8192), (2, 8192), (64, 8192)
+and (1, 100,000), starts random at 1% and 50%, m 600 servers:
+``seg_scan_step`` on the step's inputs and the standalone
+``seg_running_argmax`` / ``seg_running_max`` on its two operands, each
+with ``device_ms``, the plain version's time, the bound and
+``torch.cummax(values, dim=-1)`` as ``library_ms``: an unsegmented
+yardstick that does less work and that the port never calls.
 
 Each row holds the kernel against its plain version bit for bit (the two
 lookups also against each other: the same bytes, packed and unpacked)
@@ -55,6 +63,7 @@ import torch
 from . import common
 from .common import (
     PEAK_FP32,
+    PEAK_FP64,
     PEAK_TF32,
     bound,
     cuda_graph_time,
@@ -83,6 +92,14 @@ LOOKUP_ROWS = (
 )
 LOOKUP_REQUESTS = (1, 3, 64, 65_537)
 LOOKUP_DTYPES = (torch.int32, torch.float32, torch.float16)
+#: scan rows (lanes S, length L): the replay's step width 8192 at S 1, 2
+#: and a wide sweep's 64 lanes, and a lane of 100,000, longer than a tile;
+#: starts at each density; dt over hetero-table2's m servers
+SCAN_SHAPES = ((1, 8192), (2, 8192), (64, 8192), (1, 100_000))
+SCAN_STARTS = (0.01, 0.5)
+SCAN_SERVERS = 600
+SCAN_YARDSTICK = ("torch.cummax(values, dim=-1): unsegmented, less work, "
+                  "never called by the port")
 
 
 def _incidence(rng, rows: int, h: int, ones: int = 5) -> np.ndarray:
@@ -217,24 +234,122 @@ def check_lookup_case(case: dict) -> list[dict]:
     return report
 
 
+def scan_step_inputs(rng, S: int, L: int, starts, m: int, device) -> tuple:
+    """``seg_scan_step``'s arguments on ``device``: for each of its two
+    scans, (L,) times, half from a few multiples of 0.5 (ties everywhere)
+    and half continuous (sums that round), with 10% -inf, int64 server ids
+    in [0, m) and start flags (``"all"``, ``"first"`` only, or random at
+    the density ``starts``); then a (S, m) dt, half multiples of 0.25 and
+    half continuous."""
+    dev = torch.device(device)
+
+    def half_continuous(a, scale):
+        cont = rng.random(a.shape) < 0.5
+        a[cont] = rng.random(int(cont.sum())) * scale
+        return a
+
+    def problem():
+        t = half_continuous(rng.integers(0, 8, size=L) * 0.5, 10.0)
+        t[rng.random(L) < 0.1] = -np.inf
+        j = rng.integers(0, m, size=L)
+        if starts == "all":
+            s = np.ones(L, bool)
+        elif starts == "first":
+            s = np.zeros(L, bool)
+            s[0] = True
+        else:
+            s = rng.random(L) < float(starts)
+        return [torch.from_numpy(a).to(dev) for a in (t, j, s)]
+
+    first, second = problem(), problem()
+    dt = half_continuous(rng.integers(1, 4, size=(S, m)) * 0.25, 2.0)
+    dt = torch.from_numpy(dt).to(dev)
+    return (*first, *second, dt)
+
+
+def scan_bound(name: str, S: int, L: int, m: int = 0) -> dict:
+    """The bound of a scan at (S, L): each input read once, each output
+    written once (the step: its shared event inputs, dt, three outputs;
+    its adds and compares at the fp64 peak)."""
+    if name == "seg_scan_step":
+        return bound(4.0 * S * L, PEAK_FP64,
+                     2.0 * L * (8 + 8 + 1) + 8.0 * S * m + 24.0 * S * L)
+    out = 12.0 if name == "seg_running_argmax" else 8.0
+    return bound(float(S * L), PEAK_FP64, S * L * (8.0 + out) + L)
+
+
+def scan_records(args: tuple, shape: dict, dev, reps: int) -> list[dict]:
+    """``seg_scan_step`` on ``args`` and the standalone scans on its two
+    operands (formed by PyTorch ops), each held bitwise against its plain
+    version and timed (:func:`_record`, ``device_ms`` from 100 captured
+    calls)."""
+    t_a, j_a, s_a, t_m, j_m, s_m, dt = args
+    S, m = (int(d) for d in dt.shape)
+    L = int(t_a.shape[0])
+    va = t_a + dt[:, j_a]
+    vm = t_m + dt[:, j_m]
+    both = torch.stack([va, vm])
+    calls = 100
+    extra = {"library_call": SCAN_YARDSTICK}
+    recs = [_record("seg_scan_step", shape,
+                    lambda: kernels.seg_scan_step(*args),
+                    lambda: kernels.seg_scan_step_plain(*args),
+                    lambda: torch.cummax(both, dim=-1),
+                    scan_bound("seg_scan_step", S, L, m), dev, reps,
+                    graph_calls=calls, **extra)]
+    for name, v, s in (("seg_running_argmax", va, s_a),
+                       ("seg_running_max", vm, s_m)):
+        kern, plain = kernels.KERNELS[name], getattr(kernels, name + "_plain")
+        recs.append(_record(name, shape, lambda k=kern, v=v, s=s: k(v, s),
+                            lambda p=plain, v=v, s=s: p(v, s),
+                            lambda v=v: torch.cummax(v, dim=-1),
+                            scan_bound(name, S, L), dev, reps,
+                            graph_calls=calls, **extra))
+    return recs
+
+
+def _scan_rows(dev, reps: int) -> list[dict]:
+    recs = []
+    for S, L in SCAN_SHAPES:
+        for p in SCAN_STARTS:
+            rng = np.random.default_rng([S, L, int(p * 100)])
+            args = scan_step_inputs(rng, S, L, p, SCAN_SERVERS, dev)
+            recs += scan_records(args, {"S": S, "L": L, "starts": p,
+                                        "m": SCAN_SERVERS}, dev, reps)
+    return recs
+
+
 def device_times(kern, lib, calls: int) -> dict:
     """``device_ms`` and ``library_device_ms``: the kernel's and the
     library call's time on the card alone (:func:`common.cuda_graph_time`
-    over ``calls`` captured calls)."""
+    over ``calls`` captured calls); None where there is no library
+    call."""
     return {"device_ms": cuda_graph_time(kern, calls),
-            "library_device_ms": cuda_graph_time(lib, calls)}
+            "library_device_ms": cuda_graph_time(lib, calls) if lib else None}
+
+
+def _same(got, want) -> bool:
+    """Bitwise equality of two tensors or two tuples of them."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _record(name, shape, kern, plain, lib, bnd, dev, reps, *,
             graph_calls: int = 0, **extra) -> dict:
-    """Hold ``kern()`` bitwise against ``plain()``; on the card, time the
-    kernel, the plain version and the library call (and, given
-    ``graph_calls``, the kernel's and the library call's device time)."""
+    """Hold ``kern()`` bitwise against ``plain()`` (tensors or tuples of
+    them); on the card, time the kernel, the plain version and the library
+    call (and, given ``graph_calls``, the kernel's and the library call's
+    device time)."""
     got, want = kern(), plain()
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        err = float((got.double() - want.double()).abs().max())
+    if not _same(got, want):
+        pairs = zip(*(x if isinstance(x, tuple) else (x,)
+                      for x in (got, want)))
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in pairs)
         raise AssertionError(f"{name} {shape} differs from its plain version: "
                              f"max abs err {err}")
     rec = {"name": name, "shape": shape, "equal": True, "max_abs_err": 0.0,
@@ -355,6 +470,7 @@ def run(device=None, *, big_requests: int = BIG_R, reps: int = 20
     cids = torch.from_numpy(
         rng.integers(0, BIG_C, big_requests).astype(np.int32)).to(dev)
     recs += _lookup_pair("catalog-10k", table, cids, dev, reps)
+    recs += _scan_rows(dev, reps)
     return recs
 
 
@@ -367,6 +483,8 @@ def rows_of(recs: list[dict]) -> list[tuple]:
             tag = f"B{sh['B']}_n{sh['n']}"
         elif r["name"] == "clique_pair_edges":
             tag = f"k{sh['k']}_n{sh['n']}"
+        elif "starts" in sh:
+            tag = f"S{sh['S']}_L{sh['L']}_starts{sh['starts']}"
         else:
             tag = f"{sh['config']}_C{sh['C']}_R{sh['R']}"
         us = lambda k: "not measured" if r[k] is None else f"{r[k] * 1e3:.2f}"

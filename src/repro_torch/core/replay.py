@@ -15,7 +15,7 @@ The device half of ``repro.core.engine_jax``:
   Python loop over steps; ``E`` and ``anchor`` are updated in place; the
   step branches only on host values, so the loop makes no device sync.
   Under per-server dt the anchor resolution and the pair expiries are
-  the kernels ``seg_running_argmax`` and ``seg_running_max``.  The state
+  the two scans of one ``seg_scan_step`` launch a step.  The state
   may carry a leading axis of S scenario lanes (``E`` (S, n+1, m),
   ``anchor`` (S, n+1), spec arrays with a leading S) that share the
   schedule's event tensors: one scan prices S scenarios, as the
@@ -256,18 +256,16 @@ def _install_step(E, anchor, x, dt, now: float):
     anchor[:, x["inst_chg_rows"]] = anew
 
 
-def _seg_hooks(use_kernels: bool):
-    """(seg_running_max, seg_running_argmax): the kernels, or their plain
-    versions on the same device."""
+def _scan_hook(use_kernels: bool):
+    """The step's two scans: the kernel ``seg_scan_step``, or its plain
+    version on the same device."""
     from ..kernels import segment_reduce as sr
 
-    if use_kernels:
-        return sr.seg_running_max, sr.seg_running_argmax
-    return sr.seg_running_max_plain, sr.seg_running_argmax_plain
+    return sr.seg_scan_step if use_kernels else sr.seg_scan_step_plain
 
 
 def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
-                 const_dt, seg_max_fn, seg_argmax_fn, capture=None):
+                 const_dt, scan_fn, capture=None):
     """One step of the replay scan: Alg. 5/6 over the step's events, for
     every scenario lane at once.
 
@@ -278,7 +276,8 @@ def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
     divisor would make CUDA multiply by its reciprocal).  Each f64
     operation is its own PyTorch op, so it rounds once, as numpy does:
     the state is float for float the numpy engine's.  ``capture`` (a
-    dict) receives the scans' inputs.
+    dict) receives the scans' inputs: ``seg_scan_step``'s, and each
+    scan's operand formed by PyTorch ops for the standalone kernels.
     """
     S, K1, m = E.shape
     K = K1 - 1
@@ -295,11 +294,15 @@ def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
             x["first_c"], (a0 == j) & (E_before > 0.0), x["prev_j"] == j)
     else:
         first_cs, c_s, j_s = x["first_cs"], x["c_s"], x["j_s"]
-        e_val_s = x["t_s"] + dt[:, j_s]
+        scan_in = (x["t_s"], j_s, first_cs, x["cj_t_s"], x["cj_j_s"],
+                   x["first_cjs"], dt)
         if capture is not None:
-            capture["seg_running_argmax"] = (e_val_s.clone(), first_cs.clone())
-        v, bidx = seg_argmax_fn(e_val_s, first_cs)  # per lane
-        bidx = bidx.to(_I64)
+            capture["seg_scan_step"] = tuple(a.clone() for a in scan_in)
+            capture["seg_running_argmax"] = (x["t_s"] + dt[:, j_s],
+                                             first_cs.clone())
+            capture["seg_running_max"] = (x["cj_t_s"] + dt[:, x["cj_j_s"]],
+                                          x["first_cjs"].clone())
+        v, bidx, vmax = scan_fn(*scan_in)           # per lane
         a0_s = anchor[:, c_s]
         Eg = Ef.gather(1, c_s * m + a0_s.clamp(min=0))   # in-range gather
         Ea0_s = torch.where(a0_s >= 0, Eg, float("-inf"))
@@ -362,11 +365,6 @@ def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
         anchor.scatter_(1, torch.where(upd, ac, K),
                         x["anc_j"].expand(S, -1))
     else:
-        e_cj_s = x["cj_t_s"] + dt[:, x["cj_j_s"]]
-        if capture is not None:
-            capture["seg_running_max"] = (e_cj_s.clone(),
-                                          x["first_cjs"].clone())
-        vmax = seg_max_fn(e_cj_s, x["first_cjs"])
         Ef[:, uc * m + uj] = vmax[:, x["pos_u"]]
         pa = x["pos_a"]
         win = v[:, pa] >= Ea0_s[:, pa]
@@ -405,8 +403,11 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
     a bucket; such steps write only the dump row).  ``stats`` receives
     the step and install counts.  With capture on
     (:mod:`repro_torch.kernels.capture`), the widest step's scan inputs
-    are kept.  ``check_syncs=True`` on a CUDA device makes any operation
-    of the loop that would synchronise with the host raise
+    are kept.  Under per-server dt the scans' server ids are checked
+    against ``m`` on the host, once, before the upload (the kernel would
+    price an id outside [0, m) as NaN, the plain chain raise or wrap).
+    ``check_syncs=True`` on a CUDA device makes any operation of the loop
+    that would synchronise with the host raise
     (``torch.cuda.set_sync_debug_mode``): the loop is meant to make none.
     """
     from ..kernels import capture
@@ -420,7 +421,13 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
     spec_d = lane_spec_to_device(spec, dev, laned)
     dt = spec_d["dt"]                               # (S, m)
     dt0 = dt[:, :1]
-    seg_max_fn, seg_argmax_fn = _seg_hooks(use_kernels)
+    scan_fn = _scan_hook(use_kernels)
+    m = int(dt.shape[1])
+    for key in () if schedule.const_dt else ("j_s", "cj_j_s"):
+        ids = np.asarray(schedule.xs[key])
+        if ids.size and (ids.min() < 0 or ids.max() >= m):
+            raise ValueError(f"run_schedule: {key} holds server ids outside "
+                             f"[0, {m}): [{ids.min()}, {ids.max()}]")
     xs = schedule_to_device(schedule, dev)
     inst = np.asarray(schedule.xs["inst"])
     now = np.asarray(schedule.xs["inst_now"])
@@ -442,7 +449,7 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
                 installs += 1
             _replay_step(E3, A2, acc, x, spec_d, dt, dt0, kind=statics,
                          charge=charge, const_dt=schedule.const_dt,
-                         seg_max_fn=seg_max_fn, seg_argmax_fn=seg_argmax_fn,
+                         scan_fn=scan_fn,
                          capture=seen if b == widest else None)
             steps += 1
     finally:

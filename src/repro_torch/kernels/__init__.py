@@ -19,15 +19,19 @@ from .segment_reduce import (
     seg_running_argmax_plain,
     seg_running_max,
     seg_running_max_plain,
+    seg_scan_step,
+    seg_scan_step_plain,
 )
 
-#: every kernel wrapper of the port, by name
+#: every kernel wrapper of the port, by name (``seg_scan_step`` runs the
+#: device code of both scans in one launch a replay step)
 KERNELS = {
     "crm_update": crm_update,
     "clique_pair_edges": clique_pair_edges,
     "merge_density": merge_density,
     "seg_running_argmax": seg_running_argmax,
     "seg_running_max": seg_running_max,
+    "seg_scan_step": seg_scan_step,
     "packed_lookup": packed_lookup,
     "unpacked_lookup": unpacked_lookup,
 }
@@ -46,6 +50,8 @@ __all__ = [
     "seg_running_argmax_plain",
     "seg_running_max",
     "seg_running_max_plain",
+    "seg_scan_step",
+    "seg_scan_step_plain",
     "unpacked_lookup",
     "unpacked_lookup_plain",
 ]

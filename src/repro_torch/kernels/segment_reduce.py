@@ -3,14 +3,18 @@
 The port of ``repro.kernels.segment_reduce`` (TPU kernels
 ``seg_running_max`` and ``seg_running_argmax``, Pallas bodies
 ``_segmax_kernel`` / ``_segargmax_kernel``).  The host-schedule replay
-calls them once a step when dt differs across servers: the argmax scan
+needs both once a step when dt differs across servers: the argmax scan
 resolves the Alg.-6 anchor over the clique-sorted events, the max scan
 gives each (clique, server) pair its post-batch expiry.
 
-:func:`seg_running_max` and :func:`seg_running_argmax` launch the
-hand-written CUDA kernel ``csrc/segment_reduce.cu`` for CUDA tensors and
-run the plain versions (the reference's Hillis-Steele rounds) for CPU
-tensors.  Both only select values, so they agree bit for bit.
+:func:`seg_scan_step` is what the replay calls: both scans of one step in
+one launch of ``csrc/segment_reduce.cu``, each operand ``t + dt[lane, j]``
+formed inside the kernel.  :func:`seg_running_max` and
+:func:`seg_running_argmax` run the same device code on given values (the
+kernel bench, ``ops.py``).  Every wrapper launches its kernel for CUDA
+tensors and runs its plain version (the reference's Hillis-Steele rounds)
+for CPU tensors.  The scans only select values, and the kernel's add rounds
+as PyTorch's does, so the two agree bit for bit.
 
 Under a sweep's scenario lanes the values carry a leading lane axis,
 ``(S, L)``, over one shared ``(L,)`` start vector (the lanes share the
@@ -24,6 +28,11 @@ import ctypes
 import torch
 
 from . import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_MAX_ARGS = [_P, _P, _P, _I, _I, _P]
+_ARGMAX_ARGS = [_P, _P, _P, _P, _I, _I, _P]
+_STEP_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P]
 
 
 def _scan_rounds(v, starts, idx):
@@ -91,7 +100,7 @@ def seg_running_max(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     the values' shape.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``seg_running_max.launches``), one block per lane.
+    (counted in ``seg_running_max.launches``), one CTA per lane.
     """
     if values.device.type == "cpu" and starts.device.type == "cpu":
         return seg_running_max_plain(values, starts)
@@ -99,9 +108,8 @@ def seg_running_max(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(values)
     if L == 0 or S == 0:
         return out
-    launch = _build.function("segment_reduce", "seg_running_max_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
+    launch = _build.function("segment_reduce", "seg_running_max_launch",
+                             _MAX_ARGS)
     code = launch(values.data_ptr(), starts.data_ptr(), out.data_ptr(), S, L,
                   _build.stream(values))
     _build.check("segment_reduce", "segment_reduce", code)
@@ -115,7 +123,7 @@ def seg_running_argmax(values: torch.Tensor, starts: torch.Tensor):
     shape.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``seg_running_argmax.launches``), one block per lane.
+    (counted in ``seg_running_argmax.launches``), one CTA per lane.
     """
     if values.device.type == "cpu" and starts.device.type == "cpu":
         return seg_running_argmax_plain(values, starts)
@@ -124,16 +132,87 @@ def seg_running_argmax(values: torch.Tensor, starts: torch.Tensor):
     out_i = torch.empty(values.shape, dtype=torch.int32, device=values.device)
     if L == 0 or S == 0:
         return out_v, out_i
-    launch = _build.function("segment_reduce", "seg_running_argmax_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    launch = _build.function("segment_reduce", "seg_running_argmax_launch",
+                             _ARGMAX_ARGS)
     code = launch(values.data_ptr(), starts.data_ptr(), out_v.data_ptr(),
-                  out_i.data_ptr(), S, L,
-                  _build.stream(values))
+                  out_i.data_ptr(), S, L, _build.stream(values))
     _build.check("segment_reduce", "segment_reduce", code)
     seg_running_argmax.launches += 1
     return out_v, out_i
 
 
+def seg_scan_step_plain(t_s, j_s, first_cs, cj_t_s, cj_j_s, first_cjs,
+                        dt):
+    """The replay step's two scans as PyTorch ops: the argmax scan of
+    ``t_s + dt[:, j_s]`` over ``first_cs`` and the max scan of ``cj_t_s +
+    dt[:, cj_j_s]`` over ``first_cjs``.  Returns ``(v, bidx, vmax)``, each
+    (S, L), ``bidx`` int64.
+
+    Server ids must lie in [0, m).  Outside it this chain and the kernel
+    part ways: here PyTorch's indexing raises for an id >= m and wraps a
+    negative one, the kernel prices either as NaN.  The replay checks its
+    schedule's ids once on the host (``core/replay.py::run_schedule``)."""
+    v, bidx = seg_running_argmax_plain(t_s + dt[:, j_s], first_cs)
+    vmax = seg_running_max_plain(cj_t_s + dt[:, cj_j_s], first_cjs)
+    return v, bidx.to(torch.int64), vmax
+
+
+def _check_step(args) -> tuple[int, int, int]:
+    t_s, j_s, first_cs, cj_t_s, cj_j_s, first_cjs, dt = args
+    if dt.device.type != "cuda" or any(a.device != dt.device for a in args):
+        raise ValueError("seg_scan_step runs on one cuda device or the cpu, "
+                         f"got {sorted({str(a.device) for a in args})}")
+    L = int(t_s.shape[0]) if t_s.dim() == 1 else -1
+    for name, a, dtype in (("t_s", t_s, torch.float64),
+                           ("j_s", j_s, torch.int64),
+                           ("first_cs", first_cs, torch.bool),
+                           ("cj_t_s", cj_t_s, torch.float64),
+                           ("cj_j_s", cj_j_s, torch.int64),
+                           ("first_cjs", first_cjs, torch.bool)):
+        if a.dtype != dtype or a.dim() != 1 or a.shape[0] != L \
+                or not a.is_contiguous():
+            raise ValueError(f"seg_scan_step needs a contiguous ({L},) "
+                             f"{dtype} {name}, got {tuple(a.shape)} "
+                             f"{a.dtype}")
+    if dt.dtype != torch.float64 or dt.dim() != 2 or not dt.is_contiguous():
+        raise ValueError(f"seg_scan_step needs a contiguous (S, m) float64 "
+                         f"dt, got {tuple(dt.shape)} {dt.dtype}")
+    S, m = (int(d) for d in dt.shape)
+    if L >= 1 << 31 or m >= 1 << 31 or S > 65535:
+        raise ValueError(f"seg_scan_step: S {S}, L {L}, m {m} out of range")
+    return S, L, m
+
+
+def seg_scan_step(t_s, j_s, first_cs, cj_t_s, cj_j_s, first_cjs, dt):
+    """Both scans of one replay step under per-server dt.
+
+    ``t_s`` / ``cj_t_s`` (L,) float64 event times, ``j_s`` / ``cj_j_s`` (L,)
+    int64 server ids in [0, m), ``first_cs`` / ``first_cjs`` (L,) bool
+    segment starts, shared by the lanes; ``dt`` (S, m) float64.  Returns
+    ``(v, bidx, vmax)`` as :func:`seg_scan_step_plain` does.
+
+    CPU tensors take the plain version; CUDA tensors launch one kernel
+    (counted in ``seg_scan_step.launches``), a CTA per (scan, lane).  The
+    server ids are not checked on the card, which would cost a sync: an id
+    outside [0, m) gives a NaN operand (see :func:`seg_scan_step_plain`).
+    """
+    args = (t_s, j_s, first_cs, cj_t_s, cj_j_s, first_cjs, dt)
+    if all(a.device.type == "cpu" for a in args):
+        return seg_scan_step_plain(*args)
+    S, L, m = _check_step(args)
+    out = torch.empty((3, S, L), dtype=torch.float64, device=dt.device)
+    v, bidx, vmax = out[0], out[1].view(torch.int64), out[2]
+    if L == 0 or S == 0:
+        return v, bidx, vmax
+    launch = _build.function("segment_reduce", "seg_scan_step_launch",
+                             _STEP_ARGS)
+    code = launch(*(a.data_ptr() for a in args), m, v.data_ptr(),
+                  bidx.data_ptr(), vmax.data_ptr(), S, L, _build.stream(dt))
+    _build.check("segment_reduce", "segment_reduce", code)
+    seg_scan_step.launches += 1
+    return v, bidx, vmax
+
+
 seg_running_max.launches = 0
 seg_running_argmax.launches = 0
+seg_scan_step.launches = 0

@@ -39,6 +39,8 @@ from repro_torch.kernels import (
     seg_running_argmax_plain,
     seg_running_max,
     seg_running_max_plain,
+    seg_scan_step,
+    seg_scan_step_plain,
     unpacked_lookup,
     unpacked_lookup_plain,
 )
@@ -162,8 +164,13 @@ def test_replay_on_card_equals_cpu(cuda_device):
     assert np.isclose(gpu.total, cpu.total, rtol=1e-9, atol=0.0)
 
 
+#: scan lengths: one position, odd ones, a tile (8192) and one either
+#: side, two tiles and one, and a lane of many tiles
+SCAN_LENGTHS = [1, 7, 8191, 8192, 8193, 16_385, 100_000]
+
+
 @pytest.mark.parametrize("starts", ["all", "first", "0.01", "0.5"])
-@pytest.mark.parametrize("L", [1, 7, 8191, 8193, 100_000])
+@pytest.mark.parametrize("L", SCAN_LENGTHS)
 def test_scan_kernels_equal_plain(cuda_device, L, starts):
     """Both scans bitwise against their plain versions: ties everywhere,
     -inf entries, segments from one position to the whole stream."""
@@ -186,7 +193,84 @@ def test_scan_kernels_equal_plain(cuda_device, L, starts):
     assert got[1].dtype == torch.int32
     assert (seg_running_max.launches, seg_running_argmax.launches) == \
         (n0 + 1, n1 + 1)
+    # the same values one element into a buffer: a misaligned row
+    buf = torch.empty(L + 1, dtype=torch.float64, device=cuda_device)
+    tv1 = buf[1:]
+    tv1.copy_(tv)
+    assert torch.equal(seg_running_max(tv1, ts), seg_running_max_plain(tv, ts))
+    got = seg_running_argmax(tv1, ts)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("starts", ["all", "first", "0.01", "0.5"])
+@pytest.mark.parametrize("L", SCAN_LENGTHS)
+def test_scan_step_equals_plain(cuda_device, L, starts):
+    """``seg_scan_step`` (both scans of a replay step in one launch, the
+    operands formed in the kernel) bitwise against its plain chain, twice
+    in a row; one launch a call."""
+    rng = np.random.default_rng([L, len(starts)])
+    args = kernel_bench.scan_step_inputs(rng, 1, L, starts, 600, cuda_device)
+    n0 = seg_scan_step.launches
+    got, again = seg_scan_step(*args), seg_scan_step(*args)
+    want = seg_scan_step_plain(*args)
+    assert seg_scan_step.launches == n0 + 2
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    assert got[1].dtype == torch.int64
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("S,L,m", [(1, 9, 600), (3, 7, 600), (8, 8193, 600),
+                                   (64, 1000, 150), (5, 16_385, 5000),
+                                   (2, 8192, 4097)])
+def test_lane_scan_step_equals_plain(cuda_device, S, L, m):
+    """``seg_scan_step`` over S lanes (odd L puts lane rows off 16-byte
+    alignment; m over 4096 reads dt through L2, not shared memory)."""
+    rng = np.random.default_rng([S, L, m])
+    args = kernel_bench.scan_step_inputs(rng, S, L, "0.01", m, cuda_device)
+    got = seg_scan_step(*args)
+    want = seg_scan_step_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 1, 3), (1, 1, 1)])
+def test_scan_step_misaligned_inputs(cuda_device, offsets):
+    """``seg_scan_step`` on times, ids and flags that start 1-3 elements
+    into their buffers (rows at other alignments than the outputs')."""
+    rng = np.random.default_rng(sum(offsets))
+    args = list(kernel_bench.scan_step_inputs(rng, 3, 8193, "0.5", 600,
+                                              cuda_device))
+    for i, a in enumerate(args[:6]):
+        off = offsets[i % 3]
+        buf = torch.empty(a.numel() + off, dtype=a.dtype, device=cuda_device)
+        args[i] = buf[off:]
+        args[i].copy_(a)
+    got = seg_scan_step(*args)
+    want = seg_scan_step_plain(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    torch.cuda.synchronize()
+
+
+def test_scan_step_in_cuda_graph_equals_eager(cuda_device):
+    """A CUDA graph of ``seg_scan_step`` (as ``cuda_graph_time`` captures
+    it) gives the eager call's bits."""
+    rng = np.random.default_rng(3)
+    args = kernel_bench.scan_step_inputs(rng, 2, 8192, "0.01", 600,
+                                         cuda_device)
+    want = seg_scan_step(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        seg_scan_step(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = seg_scan_step(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
 @pytest.mark.parametrize("C,omega,d,R,dtype", [
@@ -242,11 +326,14 @@ def test_host_schedule_replay_on_card_equals_cpu(cuda_device, name):
     for fn in KERNELS.values():
         fn.launches = 0
     gpu = run_policy(policy(), trace)
-    want = ["seg_running_argmax", "seg_running_max", "packed_lookup"]
+    want = ["seg_scan_step", "packed_lookup"]
     if name == "akpc":
         want += ["crm_update", "clique_pair_edges"]
     assert all(KERNELS[k].launches > 0 for k in want)
     assert gpu.loop_stats["path"] == "host_schedule"
+    # one launch of both scans a live step, no standalone scan
+    assert seg_scan_step.launches == gpu.loop_stats["steps"]
+    assert seg_running_max.launches == seg_running_argmax.launches == 0
     cpu = run_policy(policy(), trace, device="cpu")
     assert np.array_equal(gpu.state.partition.clique_of,
                           cpu.state.partition.clique_of)
@@ -288,7 +375,8 @@ def test_unpacked_lookup_equals_plain(cuda_device, d, R, dtype):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("S,L", [(1, 8193), (3, 7), (8, 8193), (64, 1000)])
+@pytest.mark.parametrize("S,L", [(1, 9), (1, 8193), (3, 7), (8, 8193),
+                                 (64, 1000)])
 def test_lane_scans_equal_plain(cuda_device, S, L):
     """The scans' lane form, (S, L) values over one (L,) start vector,
     bitwise against the plain version and the one-lane kernel per lane."""
@@ -329,10 +417,11 @@ def test_laned_sweep_on_card_equals_cpu(cuda_device):
             if name == "akpc":
                 kw.update(t_cg=0.5, top_frac=0.5)
             pts.append(SweepPoint(name, trace, kw))
-    n0 = seg_running_max.launches
+    n0, n1 = seg_scan_step.launches, seg_running_max.launches
     eng = SweepEngine()
     gpu = eng.run(pts)
-    assert seg_running_max.launches > n0
+    assert seg_scan_step.launches > n0
+    assert seg_running_max.launches == n1
     assert max(g["lanes"] for g in eng.last_stats["groups"]) == 3
     cpu = SweepEngine(device="cpu").run(pts)
     for a, b in zip(gpu, cpu):

@@ -1,12 +1,15 @@
 """The port's scan and gather kernels' plain versions against the JAX package.
 
 On the CPU the wrappers ``seg_running_max`` / ``seg_running_argmax`` /
-``packed_lookup`` run their plain versions.  Those must equal the Pallas
-kernels run in interpret mode (under ``jax.enable_x64``) and the numpy
-oracles ``seg_running_*_ref`` bit for bit: the scans only select values,
-the gather only copies.  Shapes are ragged (L on both sides of the
-replay's 8192) with tie-heavy values and -inf entries; ``clique_lookup``
-must equal the reference's, padding slots included.
+``seg_scan_step`` / ``packed_lookup`` run their plain versions.  Those
+must equal the Pallas kernels run in interpret mode (under
+``jax.enable_x64``) and the numpy oracles ``seg_running_*_ref`` bit for
+bit: the scans only select values, the gather only copies, and the step's
+operands ``t + dt[lane, j]`` are formed in numpy for the references.
+Shapes are ragged (L on both sides of the replay's 8192) with tie-heavy
+values and -inf entries; ``clique_lookup`` must equal the reference's,
+padding slots included.  A heterogeneous host-schedule replay on the CPU
+calls ``seg_scan_step`` once a step and equals the numpy engine.
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +23,15 @@ from repro.kernels.segment_reduce import seg_running_argmax as pallas_argmax
 from repro.kernels.segment_reduce import seg_running_argmax_ref
 from repro.kernels.segment_reduce import seg_running_max as pallas_max
 from repro.kernels.segment_reduce import seg_running_max_ref
+from repro.core import CacheEnvironment as RefEnv
+from repro.core import CostParams as RefParams
+from repro.core import get_policy as ref_get_policy
+from repro.core.engine import ReplayEngine as RefReplayEngine
+from repro.traces import SynthConfig as RefSynthConfig
+from repro.traces import synth_trace as ref_synth_trace
 
+from repro_torch.convert import trace_from_arrays
+from repro_torch.core import CacheEnvironment, CostParams, get_policy, run_policy
 from repro_torch.kernels import (
     packed_lookup,
     packed_lookup_plain,
@@ -28,11 +39,27 @@ from repro_torch.kernels import (
     seg_running_argmax_plain,
     seg_running_max,
     seg_running_max_plain,
+    seg_scan_step,
+    seg_scan_step_plain,
 )
+from repro_torch.core import schedule as schedule_mod
+from repro_torch.kernels import segment_reduce
 from repro_torch.kernels.packed_lookup import CliqueLookup, clique_lookup
 
 LENGTHS = [1, 7, 8191, 8193]
 STARTS = ["all", "first", "p0.01", "p0.5", "none"]
+
+
+def _starts(rng, L, starts):
+    if starts == "all":
+        return np.ones(L, bool)
+    if starts == "first":
+        s = np.zeros(L, bool)
+        s[0] = True
+        return s
+    if starts == "none":            # position 0 starts a segment regardless
+        return np.zeros(L, bool)
+    return rng.random(L) < float(starts[1:])
 
 
 def _inputs(L, starts, seed):
@@ -40,16 +67,43 @@ def _inputs(L, starts, seed):
     rng = np.random.default_rng(seed)
     v = rng.integers(0, 4, size=L).astype(np.float64)
     v[rng.random(L) < 0.1] = -np.inf
-    if starts == "all":
-        s = np.ones(L, bool)
-    elif starts == "first":
-        s = np.zeros(L, bool)
-        s[0] = True
-    elif starts == "none":          # position 0 starts a segment regardless
-        s = np.zeros(L, bool)
-    else:
-        s = rng.random(L) < float(starts[1:])
-    return v, s
+    return v, _starts(rng, L, starts)
+
+
+def _step_inputs(S, L, starts, seed, m=5):
+    """``seg_scan_step``'s arguments as numpy: two scans' (L,) times, half
+    from a few multiples of 0.5 (ties in t + dt everywhere) and half
+    continuous (sums that round), with -inf entries, int64 server ids in
+    [0, m) and start flags, then a (S, m) dt, half multiples of 0.5."""
+    rng = np.random.default_rng(seed)
+
+    def half_continuous(a, scale):
+        cont = rng.random(a.shape) < 0.5
+        a[cont] = rng.random(int(cont.sum())) * scale
+        return a
+
+    out = []
+    for _ in range(2):
+        t = half_continuous(rng.integers(0, 4, size=L) * 0.5, 4.0)
+        t[rng.random(L) < 0.1] = -np.inf
+        out += [t, rng.integers(0, m, size=L), _starts(rng, L, starts)]
+    return (*out, half_continuous(rng.integers(1, 3, size=(S, m)) * 0.5, 1.0))
+
+
+def _hetero_trace():
+    """A small trace in both packages' forms, for the heterogeneous
+    replays."""
+    ref = ref_synth_trace(RefSynthConfig(
+        kind="netflix", n_items=40, n_servers=8, n_requests=1500, t_max=6.0,
+        bundle_cover=1.0, bundle_zipf=0.7, seed=5, size_dist="lognormal"))
+    return ref, trace_from_arrays(ref.items, ref.servers, ref.times, ref.n,
+                                  ref.m, sizes=ref.sizes)
+
+
+def _hetero_policy(name, trace, **kw):
+    return get_policy(name, params=CostParams(), env=CacheEnvironment.skewed(
+        trace.n, trace.m, CostParams(), price_sigma=0.8, seed=1),
+        cost_model="heterogeneous", **kw)
 
 
 @pytest.mark.parametrize("starts", STARTS)
@@ -85,6 +139,94 @@ def test_seg_scans_long_stream_equal_oracle(starts):
     rv, ri = seg_running_argmax_ref(v, s)
     assert np.array_equal(got_v.numpy(), rv)
     assert np.array_equal(got_i.numpy().astype(np.int64), ri)
+
+
+@pytest.mark.parametrize("starts", ["all", "first", "p0.01", "p0.5"])
+@pytest.mark.parametrize("L", [1, 7, 256, 8193])
+@pytest.mark.parametrize("S", [1, 3])
+def test_scan_step_plain_equals_pallas_and_oracle(S, L, starts):
+    """The replay step's two scans (what ``seg_scan_step`` runs on the
+    CPU) equal, lane by lane, the Pallas kernels and the numpy oracles on
+    the operands ``t + dt[lane, j]`` formed in numpy."""
+    args = _step_inputs(S, L, starts, S * L)
+    t_a, j_a, s_a, t_m, j_m, s_m, dt = args
+    targs = [torch.from_numpy(a) for a in args]
+    v, bidx, vmax = seg_scan_step(*targs)
+    want = seg_scan_step_plain(*targs)
+    assert all(torch.equal(a, b) for a, b in zip((v, bidx, vmax), want))
+    assert v.shape == bidx.shape == vmax.shape == (S, L)
+    assert bidx.dtype == torch.int64
+    for lane in range(S):
+        va, vm = t_a + dt[lane, j_a], t_m + dt[lane, j_m]
+        with jax.enable_x64(True):
+            pv, pi = pallas_argmax(jnp.asarray(va), jnp.asarray(s_a),
+                                   interpret=True)
+            pm = pallas_max(jnp.asarray(vm), jnp.asarray(s_m),
+                            interpret=True)
+        rv, ri = seg_running_argmax_ref(va, s_a)
+        assert np.array_equal(v[lane].numpy(), np.asarray(pv))
+        assert np.array_equal(bidx[lane].numpy(), np.asarray(pi))
+        assert np.array_equal(v[lane].numpy(), rv)
+        assert np.array_equal(bidx[lane].numpy(), ri)
+        assert np.array_equal(vmax[lane].numpy(), np.asarray(pm))
+        assert np.array_equal(vmax[lane].numpy(),
+                              seg_running_max_ref(vm, s_m))
+
+
+@pytest.mark.parametrize("name", ["akpc", "no_packing"])
+def test_hetero_replay_runs_one_scan_step_a_step(monkeypatch, name):
+    """A host-schedule replay under heterogeneous prices (per-server dt) on
+    the CPU calls ``seg_scan_step`` once a step and leaves the numpy
+    engine's state float for float and its costs."""
+    ref, trace = _hetero_trace()
+    kw = dict(t_cg=0.61, top_frac=0.5) if name == "akpc" else {}
+    calls = []
+
+    def counted(*a):
+        calls.append(a[0].shape[0])
+        return seg_scan_step(*a)
+
+    monkeypatch.setattr(segment_reduce, "seg_scan_step", counted)
+    res = run_policy(_hetero_policy(name, trace, **kw), trace, device="cpu")
+    pol = ref_get_policy(name, params=RefParams(), env=RefEnv.skewed(
+        ref.n, ref.m, RefParams(), price_sigma=0.8, seed=1),
+        cost_model="heterogeneous", **kw)
+    pol.bind(ref.n, ref.m)
+    eng = RefReplayEngine(ref.n, ref.m, pol.params,
+                          env=RefEnv.resolve(pol.env, ref, pol.params),
+                          cost_model="heterogeneous",
+                          caching_charge=pol.caching_charge,
+                          seed_new_cliques=pol.seed_new_cliques)
+    eng.replay(ref, clique_generator=pol.on_window if pol.t_cg else None,
+               t_cg=pol.t_cg)
+    assert res.loop_stats["path"] == "host_schedule"
+    assert len(calls) == res.loop_stats["steps"] > 0
+    assert np.array_equal(res.state.partition.clique_of,
+                          eng.state.partition.clique_of)
+    assert np.array_equal(res.state.E, eng.state.E)
+    assert np.array_equal(res.state.anchor, eng.state.anchor)
+    assert res.costs.n_misses == eng.costs.n_misses
+    assert res.costs.n_hits == eng.costs.n_hits
+    assert np.isclose(res.total, eng.costs.total, rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.parametrize("bad", ["negative", "m"])
+@pytest.mark.parametrize("key", ["j_s", "cj_j_s"])
+def test_replay_refuses_server_ids_out_of_range(monkeypatch, key, bad):
+    """The replay checks the scans' server ids against m on the host before
+    its loop, so neither the kernel (which would price the id as NaN) nor
+    the plain chain (which would raise or wrap) sees one outside [0, m)."""
+    _, trace = _hetero_trace()
+    real = schedule_mod.build_schedule
+
+    def corrupted(*a, **kw):
+        sch = real(*a, **kw)
+        sch.xs[key][0, 0] = -1 if bad == "negative" else trace.m
+        return sch
+
+    monkeypatch.setattr(schedule_mod, "build_schedule", corrupted)
+    with pytest.raises(ValueError, match=f"{key} holds server ids outside"):
+        run_policy(_hetero_policy("no_packing", trace), trace, device="cpu")
 
 
 def test_seg_scans_plain_is_what_cpu_wrapper_runs():

@@ -146,9 +146,13 @@ def test_kernel_bench_smoke_on_cpu(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(bench_common, "RESULTS_DIR", str(tmp_path))
     recs = kernel_bench.main(["--device", "cpu", "--big-requests", "256"])
     names = [r["name"] for r in recs]
+    scans = ["seg_scan_step", "seg_running_argmax", "seg_running_max"]
     assert names == (["crm_update"] * 3 + ["clique_pair_edges"] * 2
-                     + ["packed_lookup", "unpacked_lookup"] * 2)
+                     + ["packed_lookup", "unpacked_lookup"] * 2
+                     + scans * len(kernel_bench.SCAN_SHAPES)
+                     * len(kernel_bench.SCAN_STARTS))
     assert all(r["equal"] and r["ms"] is None for r in recs)
+    assert all(r["device_ms"] is None for r in recs if r["name"] in scans)
     units = {(r["name"], r["shape"]["config"]): r["copy_units"]
              for r in recs if "copy_units" in r}
     assert units[("packed_lookup", "reference")] == 64
@@ -157,3 +161,4 @@ def test_kernel_bench_smoke_on_cpu(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "torch_kernel_bench.json").exists()
     out = capsys.readouterr().out
     assert "kernel/unpacked_lookup/reference_C128_R64" in out
+    assert "kernel/seg_scan_step/S1_L8192_starts0.01" in out
