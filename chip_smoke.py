@@ -19,10 +19,14 @@
    ones at the same shapes and on ragged ones, and ``crm_update`` and
    ``clique_pair_edges`` on the inputs their sparse designs could get
    wrong (``kernel_bench.worst_cases``: dense, empty and strided rows, S 1,
-   h 1); every kernel is called twice on each input and must give the
-   same bits both times; times kernel, plain version and library call on
-   the captured and the worst-case inputs and works out each kernel's
-   bound from the work these inputs need;
+   h 1); ``merge_density`` unmasked and masked at every act count edge
+   case and on the captured merge in both modes; every kernel is called
+   twice on each input and must give the same bits both times; times kernel,
+   plain version and library call on the captured and the worst-case
+   inputs (``merge_density`` also beside the mask chain its masked mode
+   replaces) and works out each kernel's bound from the work these
+   inputs need; the device-CGM replay must launch ``merge_density`` once
+   a window;
 5. the host-schedule replay: ``hetero-table2`` (the Table-II trace with
    lognormal item sizes under the heterogeneous cost model, per-server
    dt) with ``akpc``, ``no_packing``, ``ttl``, ``packcache`` and
@@ -36,8 +40,11 @@
 6. ``kernels_bench``: the kernel benchmark (``python -m
    repro_torch.bench.kernel_bench``), the only path of ``unpacked_lookup``:
    every row bitwise against the plain version, the two lookups against
-   each other on the same bytes, plus ragged lookups (d 1, 3, 255, 256;
-   int32, float32, float64; R 1), every path of the lookups' copy engine
+   each other on the same bytes, ``merge_density`` in both modes up to
+   the full merge's S 20,000 (k 10,000, drawn on the card; its record
+   stands beside the captured merge's in the kernels' line), plus ragged
+   lookups (d 1, 3, 255, 256; int32, float32, float64; R 1), every path
+   of the lookups' copy engine
    (``kernel_bench.lookup_cases``: narrow, vector, sliced, ragged;
    R 1, 3, 64, 65,537; int32, float32, float16), each twice, and an id
    out of range that must raise;
@@ -84,6 +91,7 @@ from repro_torch.bench.common import (  # noqa: E402
     PEAK_FP32,
     PEAK_TF32,
     bound,
+    cuda_graph_time,
     cuda_time,
     product_ops,
     t_cg_for,
@@ -323,10 +331,13 @@ def kernel_phase(shapes: dict, captured: dict, seed: int, dev
     versions on synthetic inputs at each configuration's shapes and at
     ragged ones, on the worst cases of the sparse designs, and on the
     inputs captured from each configuration's replay, on which they are
-    timed.  Returns per-kernel timing records by configuration, and the
-    worst cases' records."""
+    timed (``merge_density`` in both modes, beside the mask chain its
+    masked mode replaces).  Returns per-kernel timing records by
+    configuration, the worst cases' records and the synthetic merges'
+    records."""
     rng = np.random.default_rng(seed)
     records: dict = {}
+    merges: dict = {}
     ragged = {"ragged": (37, 1001), "ragged-wide": (1000, 3333)}
     report: list = []
 
@@ -349,6 +360,20 @@ def kernel_phase(shapes: dict, captured: dict, seed: int, dev
                  f"gamma={g} ({int((want >= 0).sum())} passing pairs)",
                  lambda: merge_density(X, sizes, omega, g32),
                  lambda: want)
+            if label in shapes:
+                merges[f"synthetic {label} unmasked omega={omega} "
+                       f"gamma={g}"] = {
+                    "shape": {"S": X.shape[0], "n_act": None},
+                    "device_ms": cuda_graph_time(
+                        lambda: merge_density(X, sizes, omega, g32), REPS),
+                    **kernel_bench.merge_bound(sizes, omega)}
+            S = X.shape[0]
+            for k in (0, 1, 2, S // 3, S - 1, S):
+                held("merge_density", f"synthetic {label} omega={omega} "
+                     f"gamma={g} n_act={k}",
+                     lambda: merge_density(X, sizes, omega, g32, n_act=k),
+                     lambda: merge_density_plain(X, sizes, omega, g32,
+                                                 n_act=k))
         held("clique_pair_edges", f"synthetic {label} (dense A)",
              lambda: clique_pair_edges(Md, Ad), lambda: X)
         gamma = float(np.float32(0.85))
@@ -365,7 +390,7 @@ def kernel_phase(shapes: dict, captured: dict, seed: int, dev
         cap = captured[label]
         (H,) = cap["crm_update"]
         M, A = cap["clique_pair_edges"]
-        X, sizes, omega, g32 = cap["merge_density"]
+        X, sizes, omega, g32, k0 = cap["merge_density"]
         wcap, h = H.shape
         S = M.shape[0]
         cases = {
@@ -376,10 +401,11 @@ def kernel_phase(shapes: dict, captured: dict, seed: int, dev
                 lambda: clique_pair_edges_plain(M, A),
                 lambda: M @ A @ M.T,
                 pair_bound("clique_pair_edges", (M, A))),
+            # the main path's call: D with the act mask of its k0 groups
             "merge_density": (
-                lambda: merge_density(X, sizes, omega, g32),
-                lambda: merge_density_plain(X, sizes, omega, g32), None,
-                bound(6.0 * S * S, PEAK_FP32, 4.0 * (2 * S * S + S))),
+                lambda: merge_density(X, sizes, omega, g32, n_act=k0),
+                lambda: merge_density_plain(X, sizes, omega, g32, n_act=k0),
+                None, kernel_bench.merge_bound(sizes, omega, k0)),
         }
         for name, (kern, plain, lib, bnd) in cases.items():
             err = held(name, f"captured {label}", kern, plain)
@@ -394,10 +420,59 @@ def kernel_phase(shapes: dict, captured: dict, seed: int, dev
                 **kernel_bench.device_times(kern, lib, REPS),
                 **bnd,
             }
+        records[label]["merge_density"].update(
+            merge_extras(report, X, sizes, omega, g32, k0))
     worst = worst_phase(report, seed, dev)
     print("kernels " + json.dumps(report), flush=True)
     print("kernels_worst " + json.dumps(worst), flush=True)
-    return records, worst
+    print("kernels_merge " + json.dumps(
+        {**{c: r["merge_density"] for c, r in records.items()}, **merges}),
+        flush=True)
+    return records, worst, merges
+
+
+def mask_chain(D, act):
+    """The act mask as the merge applied it after the kernel until the
+    masked mode took it over: eye, act pairs, where."""
+    eyeS = torch.eye(D.shape[0], dtype=torch.bool, device=D.device)
+    actp = act[:, None] & act[None, :] & ~eyeS
+    return torch.where(actp, D, -2.0)
+
+
+def merge_extras(report: list, X, sizes, omega, g32, k0) -> dict:
+    """The captured merge input's other numbers: the act count, the
+    unmasked mode (the TPU kernel's function) held and timed, and the mask
+    chain that the masked mode replaces, on the card alone."""
+    unmasked = lambda: merge_density(X, sizes, omega, g32)      # noqa: E731
+    plain = lambda: merge_density_plain(X, sizes, omega, g32)   # noqa: E731
+    err = held_equal(report, "merge_density", "captured unmasked", unmasked,
+                     plain)
+    D0 = unmasked()
+    act = torch.arange(X.shape[0], device=X.device) < k0
+    want = merge_density_plain(X, sizes, omega, g32, n_act=k0)
+    if not torch.equal(mask_chain(D0, act), want):
+        raise AssertionError("the mask chain differs from the masked mode")
+    return {
+        "n_act": k0,
+        "mask_chain_device_ms": cuda_graph_time(
+            lambda: mask_chain(D0, act), REPS),
+        "unmasked": {"max_abs_err": err, "ms": cuda_time(unmasked, REPS),
+                     "plain_ms": cuda_time(plain, REPS),
+                     "device_ms": cuda_graph_time(unmasked, REPS),
+                     **kernel_bench.merge_bound(sizes, omega)},
+    }
+
+
+def full_merge(bench_recs: list) -> dict:
+    """The kernel bench's record of ``merge_density`` at the full merge's
+    S 20,000 (``catalog-10k``'s 2n), masked at k 10,000."""
+    S = kernel_bench.BIG_SLOTS
+    for r in bench_recs:
+        if (r["name"] == "merge_density" and r["shape"]["S"] == S
+                and r["shape"]["n_act"] == S // 2):
+            return {**r, "inputs": "synthetic (kernel bench)"}
+    raise AssertionError(f"the kernel bench has no merge_density row at "
+                         f"S {S}")
 
 
 def same_state(a, b) -> None:
@@ -437,6 +512,10 @@ def slice_phase(config: str, trace, t_cg: float) -> tuple[dict, dict]:
     for name in CGM_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{config}: kernel {name} never launched")
+    if launches["merge_density"] != res.n_windows:
+        raise AssertionError(
+            f"{config}: {launches['merge_density']} merge_density launches "
+            f"for {res.n_windows} windows (one merge a window)")
     plain = run_policy_torch(akpc(t_cg), trace, use_kernels=False)
     if any(fn.launches != launches[name] for name, fn in KERNELS.items()):
         raise AssertionError("the plain run launched a kernel")
@@ -1090,7 +1169,7 @@ def main() -> int:
         results[c], captured_cgm[c] = slice_phase(c, v[0], v[1])
         phase(f"slice1 {c}", t0)
     t0 = time.perf_counter()
-    records, worst = kernel_phase(
+    records, worst, merges = kernel_phase(
         {c: (v[2], v[3]) for c, v in configs.items()}, captured_cgm,
         args.seed, dev)
     del captured_cgm
@@ -1112,6 +1191,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     bench_recs, bench_launches = kernels_bench_phase(dev)
+    merges["synthetic full merge"] = full_merge(bench_recs)
     phase("kernels_bench", t0)
     t0 = time.perf_counter()
     fig6 = sweep_fig6_phase(traces2["netflix-table2"])
@@ -1156,6 +1236,8 @@ def main() -> int:
                     **rec2, "launches": results2[c]["akpc"]["launches"][name]}
             for label, rec2 in worst.get(name, {}).items():
                 by_config[f"worst {label}"] = rec2
+            if name == "merge_density":
+                by_config.update(merges)
         elif name == "unpacked_lookup":
             brecs = [r for r in bench_recs if r["name"] == name]
             rec = dict(brecs[-1])

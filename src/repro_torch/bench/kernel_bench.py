@@ -2,6 +2,7 @@
 ``benchmarks/kernel_bench.py``, on the card.
 
     python -m repro_torch.bench.kernel_bench [--device cuda] [--big-requests 65536]
+                                             [--big-slots 20000]
 
 Rows, at the reference's shapes and inputs (numpy seed 0, drawn in the
 reference's order):
@@ -23,16 +24,27 @@ with ``device_ms``, the plain version's time, the bound and
 ``torch.cummax(values, dim=-1)`` as ``library_ms``: an unsegmented
 yardstick that does less work and that the port never calls.
 
+and ``merge_density`` (:func:`merge_inputs`: sizes 1-4, exact integer
+pair edges with densities on both sides of gamma, omega 5, gamma 0.85) at
+S 64 (k 32), S 2048 (k 229, the captured ``catalog-10k`` merge's act
+count, and k = S) and S 20,000 (k 10,000: ``catalog-10k``'s full merge,
+S = 2n), each unmasked (``n_act=None``, the TPU kernel's function) and
+masked (``n_act=k``), with ``device_ms``, the plain version's time and
+the bound by :func:`merge_bound`, beside ``output_fill_device_ms`` (a
+fill of D's bytes: the write floor).
+
 Each row holds the kernel against its plain version bit for bit (the two
 lookups also against each other: the same bytes, packed and unpacked)
 and reports, on the card, the kernel's time, the plain version's, one
-PyTorch call's (``H.T @ H``, ``M @ A @ M.T``, ``index_select``; TF32 off)
-and the bound, all in ms by CUDA events after a warm-up.  The bound is
+PyTorch call's (``H.T @ H``, ``M @ A @ M.T``, ``index_select``; TF32 off;
+none for ``merge_density``) and the bound, all in ms by CUDA events after
+a warm-up.  The bound is
 the larger of the bytes the inputs need (for a lookup: the ids, each
 table row they touch read once, the output written once) at 3.35 TB/s
 and the products' multiply-adds at these inputs at the TF32 peak.  With
 ``--device cpu`` the wrappers run their plain versions and only the
-checks run: no time is taken on the CPU.  The lookup rows also give the
+checks run: no time is taken on the CPU (cut ``--big-requests`` and
+``--big-slots`` there).  The lookup rows also give the
 path the copy engine took, ``device_ms`` and ``library_device_ms`` (the
 kernel's and ``index_select``'s time on the card alone, from the replay
 of a CUDA graph of back-to-back calls: at R 64 a call is shorter than its
@@ -100,6 +112,12 @@ SCAN_STARTS = (0.01, 0.5)
 SCAN_SERVERS = 600
 SCAN_YARDSTICK = ("torch.cummax(values, dim=-1): unsegmented, less work, "
                   "never called by the port")
+#: merge rows (S, act counts k): netflix-table2's S 64, catalog-10k's
+#: S 2048 at the captured merge's 229 act groups and at S (and its full
+#: merge, S = 2n = BIG_SLOTS, at k = S / 2)
+MERGE_SHAPES = ((64, (32,)), (2048, (229, 2048)))
+BIG_SLOTS = 20_000
+MERGE_OMEGA, MERGE_GAMMA = 5, 0.85
 
 
 def _incidence(rng, rows: int, h: int, ones: int = 5) -> np.ndarray:
@@ -319,6 +337,82 @@ def _scan_rows(dev, reps: int) -> list[dict]:
     return recs
 
 
+def merge_inputs(S: int, device, seed: int = 0) -> tuple:
+    """``merge_density``'s (X, sizes) at S slots, drawn on ``device`` from
+    a seeded ``torch.Generator``: sizes 1-4 (omega 5 pairs 1 with 4 and 2
+    with 3); X symmetric exact integer pair edges, ``round(s_i s_j u)``
+    between two groups and ``round(s_i (s_i - 1) u)`` within one, u
+    uniform in [0.5, 1): densities on both sides of gamma 0.85."""
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    sizes = torch.randint(1, 5, (S,), generator=g, device=dev,
+                          dtype=torch.int32)
+    sf = sizes.to(torch.float32)
+    u = torch.rand((S, S), generator=g, device=dev).mul_(0.5).add_(0.5)
+    X = torch.triu(u.mul_(sf[:, None]).mul_(sf[None, :]).round_(), 1)
+    del u
+    X += X.T.clone()
+    ud = torch.rand(S, generator=g, device=dev).mul_(0.5).add_(0.5)
+    X.diagonal().copy_((sf * (sf - 1.0) * ud).round_())
+    return X, sizes
+
+
+def merge_bound(sizes: torch.Tensor, omega: int, n_act=None) -> dict:
+    """The bound of ``merge_density`` at these sizes: D written once, the
+    sizes and X's diagonal read once, and X read only at the entries
+    whose result depends on it (the size gate passes off the diagonal,
+    inside the k x k act block when masked); their two adds and divide
+    at the fp32 peak.  ``bytes_all_x``/``bound_all_x_ms`` keep the count
+    of all of X read (the count of the kernel's first design)."""
+    S = int(sizes.shape[0])
+    k = S if n_act is None else int(n_act)
+    s = sizes[:k].to(torch.int64)
+    if k and int(s.min()) < 0:
+        raise ValueError("group sizes are >= 0")
+    cnt = torch.bincount(s[s <= omega], minlength=omega + 1).double().cpu()
+    passing = float((cnt * cnt.flip(0)).sum())
+    if omega % 2 == 0:
+        passing -= float(cnt[omega // 2])          # i == j
+    rec = bound(4.0 * passing, PEAK_FP32,
+                4.0 * S * S + 8.0 * S + 4.0 * passing)
+    all_x = 4.0 * (2 * S * S + S)
+    return {**rec, "x_entries_read": passing, "bytes_all_x": all_x,
+            "bound_all_x_ms": all_x / common.PEAK_BYTES * 1e3}
+
+
+def merge_records(X, sizes, n_acts, shape: dict, dev, reps: int) -> list:
+    """``merge_density`` on (X, sizes) unmasked and at each ``n_acts``, each
+    held bitwise against its plain version and timed (:func:`_record`);
+    on the card also the fill of D's bytes."""
+    S = int(X.shape[0])
+    calls = 100 if S * S * 4 < 64e6 else 10
+    recs = []
+    for k in (None, *n_acts):
+        args = (X, sizes, MERGE_OMEGA, float(np.float32(MERGE_GAMMA)), k)
+        rec = _record("merge_density", {**shape, "S": S, "n_act": k},
+                      lambda a=args: kernels.merge_density(*a),
+                      lambda a=args: kernels.merge_density_plain(*a), None,
+                      merge_bound(sizes, MERGE_OMEGA, k), dev, reps,
+                      graph_calls=calls)
+        if dev.type == "cuda":
+            D = torch.empty((S, S), dtype=torch.float32, device=dev)
+            rec["output_fill_device_ms"] = cuda_graph_time(
+                lambda: D.fill_(-2.0), calls)
+        recs.append(rec)
+    return recs
+
+
+def _merge_rows(dev, reps: int, big_slots: int) -> list[dict]:
+    recs = []
+    for S, ks in (*MERGE_SHAPES, (big_slots, (big_slots // 2,))):
+        X, sizes = merge_inputs(S, dev, seed=S)
+        recs += merge_records(X, sizes, ks, {"omega": MERGE_OMEGA,
+                                             "gamma": MERGE_GAMMA}, dev, reps)
+        del X, sizes
+    return recs
+
+
 def device_times(kern, lib, calls: int) -> dict:
     """``device_ms`` and ``library_device_ms``: the kernel's and the
     library call's time on the card alone (:func:`common.cuda_graph_time`
@@ -356,7 +450,7 @@ def _record(name, shape, kern, plain, lib, bnd, dev, reps, *,
            **bnd, **extra}
     if dev.type == "cuda":
         rec.update(ms=cuda_time(kern, reps), plain_ms=cuda_time(plain, reps),
-                   library_ms=cuda_time(lib, reps))
+                   library_ms=cuda_time(lib, reps) if lib else None)
         if graph_calls:
             rec.update(device_times(kern, lib, graph_calls))
     else:
@@ -423,8 +517,8 @@ def _lookup_pair(label, table, cids, dev, reps) -> list[dict]:
     return recs
 
 
-def run(device=None, *, big_requests: int = BIG_R, reps: int = 20
-        ) -> list[dict]:
+def run(device=None, *, big_requests: int = BIG_R,
+        big_slots: int = BIG_SLOTS, reps: int = 20) -> list[dict]:
     """Every row of the benchmark on ``device`` (default CUDA); returns
     the records, raising if a kernel differs from its plain version."""
     from ..core.replay import resolve_device
@@ -471,6 +565,7 @@ def run(device=None, *, big_requests: int = BIG_R, reps: int = 20
         rng.integers(0, BIG_C, big_requests).astype(np.int32)).to(dev)
     recs += _lookup_pair("catalog-10k", table, cids, dev, reps)
     recs += _scan_rows(dev, reps)
+    recs += _merge_rows(dev, reps, big_slots)
     return recs
 
 
@@ -483,6 +578,8 @@ def rows_of(recs: list[dict]) -> list[tuple]:
             tag = f"B{sh['B']}_n{sh['n']}"
         elif r["name"] == "clique_pair_edges":
             tag = f"k{sh['k']}_n{sh['n']}"
+        elif r["name"] == "merge_density":
+            tag = f"S{sh['S']}_k{sh['n_act']}"
         elif "starts" in sh:
             tag = f"S{sh['S']}_L{sh['L']}_starts{sh['starts']}"
         else:
@@ -509,13 +606,17 @@ def main(argv=None) -> list[dict]:
                     help="cuda (default) or cpu (checks only, no timing)")
     ap.add_argument("--big-requests", type=int, default=BIG_R,
                     help="requests R of the catalog-10k lookup pair")
+    ap.add_argument("--big-slots", type=int, default=BIG_SLOTS,
+                    help="slots S of the largest merge_density row (its "
+                    "act count k is S / 2)")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed calls per kernel after one warm-up")
     args = ap.parse_args(argv)
     if args.device in (None, "cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    recs = run(args.device, big_requests=args.big_requests, reps=args.reps)
+    recs = run(args.device, big_requests=args.big_requests,
+               big_slots=args.big_slots, reps=args.reps)
     dev = torch.device(args.device or "cuda")
     common.save_json("torch_kernel_bench", {
         "device": (torch.cuda.get_device_name(0) if dev.type == "cuda"

@@ -450,20 +450,18 @@ def _approx_merge(of, binary, hot_idx, valid_h, cspec, stats, *, n, h,
     # with capture on, keep the inputs of the merge with the most groups
     capture.keep_largest("clique_pair_edges", n_act0,
                          lambda: (M.clone(), A.clone()))
+    # D with the act mask (act is the slot prefix < n_act0) in one call
     if use_kernels:
         X = clique_pair_edges(M, A)
         capture.keep_largest(
             "merge_density", n_act0,
-            lambda: (X.clone(), sizes.clone(), omega, gamma32))
-        D = merge_density(X, sizes, omega, gamma32)
+            lambda: (X.clone(), sizes.clone(), omega, gamma32, n_act0))
+        D = merge_density(X, sizes, omega, gamma32, n_act=n_act0)
     else:
         X = clique_pair_edges_plain(M, A)
-        D = merge_density_plain(X, sizes, omega, gamma32)
+        D = merge_density_plain(X, sizes, omega, gamma32, n_act=n_act0)
     e_max = torch.tensor(omega_f * (omega_f - 1.0) / 2.0, dtype=torch.float64,
                          device=dev).to(torch.float32)
-    eyeS = torch.eye(scap, dtype=torch.bool, device=dev)
-    actp = act[:, None] & act[None, :] & ~eyeS
-    D = torch.where(actp, D, -2.0)
     sizes = sizes.to(_I64)
 
     t = n_act0

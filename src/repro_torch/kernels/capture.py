@@ -9,8 +9,9 @@ numpy), and the largest incidence ``H`` and membership/CRM pair ``M``,
 ``A`` of the host clique generation.  On the device clique generation:
 the fullest window's incidence (a device tensor, the leading ``h``
 columns of its buffer, as the kernel gets it) and the inputs ``M``,
-``A`` and ``X``, sizes, omega, gamma of the merge with the most active
-groups.  When off, a call site pays one ``is None`` test.
+``A`` and ``X``, sizes, omega, gamma and the active group count
+``n_act0`` of the merge with the most active groups.  When off, a call
+site pays one ``is None`` test.
 """
 from __future__ import annotations
 

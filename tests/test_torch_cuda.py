@@ -119,6 +119,67 @@ def test_kernels_equal_plain(cuda_device, h, rows):
     torch.cuda.synchronize()
 
 
+#: merge_density's slot counts: S 1, odd S, S 74 (S % 4 == 2: every other
+#: row unaligned), catalog-10k's S 2048 and S 2050 (a ragged column tile)
+MERGE_SLOTS = [1, 3, 74, 2048, 2050]
+
+
+@pytest.mark.parametrize("S", MERGE_SLOTS)
+def test_merge_density_modes_equal_plain(cuda_device, S):
+    """merge_density unmasked and at every act count edge case, bitwise
+    against its plain version, twice with the same bits, one launch a
+    call; and on X and sizes one element (4 bytes) into their storage, so
+    no row of X is 16-byte aligned."""
+    X, sizes = kernel_bench.merge_inputs(S, cuda_device, seed=S)
+    ks = [None, *sorted({0, 1, 2, S // 3, S - 1, S} & set(range(S + 1)))]
+    for omega, gamma in ((5, 0.85), (3, 0.0), (4, 0.6)):
+        g32 = float(np.float32(gamma))
+        for k in ks:
+            n0 = merge_density.launches
+            got = merge_density(X, sizes, omega, g32, n_act=k)
+            again = merge_density(X, sizes, omega, g32, n_act=k)
+            assert merge_density.launches == n0 + 2
+            want = merge_density_plain(X, sizes, omega, g32, n_act=k)
+            assert torch.equal(got, again), (omega, k)
+            assert torch.equal(got, want), (omega, k)
+            if S >= 74 and (k is None or k >= S // 3):
+                # both sides of the gate and of gamma
+                assert (want >= 0).any() and (want == -1).any()
+    xb = torch.empty(S * S + 1, dtype=torch.float32, device=cuda_device)
+    sb = torch.empty(S + 1, dtype=torch.int32, device=cuda_device)
+    Xo, so = xb[1:].view(S, S), sb[1:]
+    Xo.copy_(X)
+    so.copy_(sizes)
+    assert Xo.is_contiguous() and Xo.data_ptr() % 16 == 4
+    for k in ks:
+        assert torch.equal(merge_density(Xo, so, 5, float(np.float32(0.85)),
+                                         n_act=k),
+                           merge_density_plain(X, sizes, 5,
+                                               float(np.float32(0.85)),
+                                               n_act=k)), k
+    torch.cuda.synchronize()
+
+
+def test_merge_density_refuses_bad_operands(cuda_device):
+    """The wrapper raises, and launches nothing, on an act count outside
+    [0, S], a wrong dtype or a non-contiguous X."""
+    X, sizes = kernel_bench.merge_inputs(8, cuda_device)
+    wide = torch.zeros((8, 9), dtype=torch.float32, device=cuda_device)
+    n0 = merge_density.launches
+    for bad in (-1, 9):
+        with pytest.raises(ValueError, match="n_act"):
+            merge_density(X, sizes, 5, 0.85, n_act=bad)
+    with pytest.raises(ValueError, match="float32"):
+        merge_density(X.double(), sizes, 5, 0.85)
+    with pytest.raises(ValueError, match="int32"):
+        merge_density(X, sizes.long(), 5, 0.85)
+    with pytest.raises(ValueError, match="contiguous"):
+        merge_density(wide[:, :8], sizes, 5, 0.85, n_act=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        merge_density(X.T, sizes, 5, 0.85)
+    assert merge_density.launches == n0
+
+
 @pytest.mark.parametrize("name", ["crm_update", "clique_pair_edges"])
 def test_sparse_kernels_worst_cases(cuda_device, name):
     """crm_update and clique_pair_edges on the inputs their sparse designs

@@ -144,13 +144,21 @@ def test_kernel_bench_smoke_on_cpu(tmp_path, monkeypatch, capsys):
     """``--device cpu``: every row's checks run, at the reference's inputs
     (numpy seed 0), and no time is reported for the CPU."""
     monkeypatch.setattr(bench_common, "RESULTS_DIR", str(tmp_path))
-    recs = kernel_bench.main(["--device", "cpu", "--big-requests", "256"])
+    recs = kernel_bench.main(["--device", "cpu", "--big-requests", "256",
+                              "--big-slots", "98"])
     names = [r["name"] for r in recs]
     scans = ["seg_scan_step", "seg_running_argmax", "seg_running_max"]
     assert names == (["crm_update"] * 3 + ["clique_pair_edges"] * 2
                      + ["packed_lookup", "unpacked_lookup"] * 2
                      + scans * len(kernel_bench.SCAN_SHAPES)
-                     * len(kernel_bench.SCAN_STARTS))
+                     * len(kernel_bench.SCAN_STARTS)
+                     + ["merge_density"] * 7)
+    merges = [r for r in recs if r["name"] == "merge_density"]
+    assert [(r["shape"]["S"], r["shape"]["n_act"]) for r in merges] == [
+        (64, None), (64, 32), (2048, None), (2048, 229), (2048, 2048),
+        (98, None), (98, 49)]
+    assert all(r["device_ms"] is None and r["x_entries_read"] > 0
+               and r["bytes"] < r["bytes_all_x"] for r in merges)
     assert all(r["equal"] and r["ms"] is None for r in recs)
     assert all(r["device_ms"] is None for r in recs if r["name"] in scans)
     units = {(r["name"], r["shape"]["config"]): r["copy_units"]
@@ -162,3 +170,4 @@ def test_kernel_bench_smoke_on_cpu(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "kernel/unpacked_lookup/reference_C128_R64" in out
     assert "kernel/seg_scan_step/S1_L8192_starts0.01" in out
+    assert "kernel/merge_density/S2048_k229" in out
