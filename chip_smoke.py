@@ -65,7 +65,22 @@
    times them, every captured input also on the card alone (``device_ms``
    and ``library_device_ms``, from a CUDA graph of calls; the CGM
    kernels' captured inputs too);
-10. prints the kernels' JSON line and, last, the result line.
+10. the serve phase: ``serve_netflix`` streams ``netflix-table2`` in
+    128-request slices through a ``LiveServingEngine`` (``akpc``, the
+    device clique generation; chunks of 65,536, a ring of 6) and
+    ``serve_hetero`` streams ``hetero-table2`` the same way for ``akpc``
+    and ``no_packing`` (the host schedule, per-server dt) under torch's
+    sync debug mode, every host sync classified; each stream's totals
+    equal the ``slice`` / ``slice2`` line's at 1e-9 (integer counters
+    exact), the path's kernels launch (``crm_update`` and
+    ``merge_density`` once a window), a 200,000-request head again with
+    the plain versions equals the kernel run bit for bit, and a snapshot
+    taken mid-flight restores into a fresh card engine and a CPU session
+    that both finish the head bit for bit alike; then
+    ``python -m repro_torch.bench.serve_bench --smoke`` in a process of
+    its own (session, live cold and live warm req/s, printed, not gated
+    here);
+11. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
 Writes the kernel build log (and ``--profile`` tables) under ``--out``
@@ -74,11 +89,15 @@ Writes the kernel build log (and ``--profile`` tables) under ``--out``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -105,6 +124,7 @@ from repro_torch.bench.sweep_bench import (  # noqa: E402
 )
 from repro_torch.core import (  # noqa: E402
     CacheEnvironment,
+    CacheSession,
     CacheState,
     CostParams,
     SweepEngine,
@@ -143,6 +163,7 @@ from repro_torch.kernels import (  # noqa: E402
     unpacked_lookup,
     unpacked_lookup_plain,
 )
+from repro_torch.serving import LiveServingEngine  # noqa: E402
 from repro_torch.traces import SynthConfig, paper_trace, synth_trace  # noqa: E402
 
 #: (omega, gamma) cases of the merge_density check: the path's default
@@ -195,6 +216,17 @@ RAGGED_DTYPES = (torch.int32, torch.float32, torch.float64)
 LOOKUP_PATHS = ("narrow", "vector", "sliced", "ragged")
 #: the replay's named profiler spans (``core/cgm.py``)
 SPANS = ("cgm.", "replay.", "host.")
+#: the serve phase: requests an arrival slice, a dispatched chunk, the
+#: ring's depth (the reference serving bench's), the head streamed again
+#: with the plain versions, and the mid-flight snapshot's cut in that head
+#: (two chunks dispatched, 77 requests buffered)
+SERVE_SLICE, SERVE_CHUNK, SERVE_RING = 128, 65_536, 6
+SERVE_HEAD, SERVE_CUT = 200_000, 2 * 65_536 + 77
+#: the port's functions a host sync of the live host-schedule path may
+#: come from, by kind (``SyncCounter``); any other sync is "other"
+SYNC_KINDS = {"gather": "lookup", "crm_matmul": "host_cgm",
+              "pair_edges": "host_cgm", "_sync_costs": "costs",
+              "_sync_state": "state"}
 
 
 def make_trace(config: str, n_requests: int, seed: int):
@@ -539,6 +571,7 @@ def slice_phase(config: str, trace, t_cg: float) -> tuple[dict, dict]:
         "loop_stats": res.loop_stats, "launches": launches,
         "cpu_head_requests": head.n_requests,
         "cpu_head_windows": cpu_head.n_windows,
+        "costs": res.costs.as_dict(),
     }
     print("slice " + json.dumps(out), flush=True)
     return out, captured
@@ -671,6 +704,7 @@ def slice2_phase(config: str, trace, names, cost_model: str,
             "cpu_head_requests": head.n_requests,
             "cpu_head_windows": cpu_head.n_windows,
             "phase_s": time.perf_counter() - t0,
+            "costs": res.costs.as_dict(),
         }
         print("slice2 " + json.dumps(line), flush=True)
         out[name] = line
@@ -1088,6 +1122,208 @@ def sweep_fig10_phase(n_requests: int) -> tuple[dict, dict]:
     return line, captured
 
 
+class SyncCounter:
+    """Counts the host syncs that ``torch.cuda.set_sync_debug_mode("warn")``
+    reports inside the block, by the port's function that made each
+    (``SYNC_KINDS``; "other" for any other place).  Waits on a CUDA event
+    (the live engine's ring) are not syncs to that mode; the engine counts
+    them itself."""
+
+    def __enter__(self):
+        self.counts = dict.fromkeys(
+            (*sorted(set(SYNC_KINDS.values())), "other"), 0)
+        self.other: list = []
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        self._show = warnings.showwarning
+        warnings.showwarning = self._record
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def _record(self, message, category, filename, lineno, file=None,
+                line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            self._show(message, category, filename, lineno, file, line)
+            return
+        stack = traceback.extract_stack()[:-1]
+        kind = next((SYNC_KINDS[f.name] for f in reversed(stack)
+                     if f.name in SYNC_KINDS), "other")
+        self.counts[kind] += 1
+        if kind == "other" and len(self.other) < 3:
+            self.other.append("".join(traceback.format_list(stack[-4:])))
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        return False
+
+
+def submit_slices(eng, trace, lo: int, hi: int) -> None:
+    """Submit [lo, hi) of the trace in ``SERVE_SLICE`` arrival slices;
+    fails if the ring ever holds more than ``ring`` chunks."""
+    for s in range(lo, hi, SERVE_SLICE):
+        e = min(s + SERVE_SLICE, hi)
+        eng.submit(trace.items[s:e], trace.servers[s:e], trace.times[s:e])
+        if eng.in_flight > eng.ring:
+            raise AssertionError(f"{eng.in_flight} chunks in flight on a "
+                                 f"ring of {eng.ring}")
+
+
+def stream_live(eng, trace, lo: int = 0) -> float:
+    """Stream [lo, end) and drain; seconds, ending in a device sync."""
+    t0 = time.perf_counter()
+    submit_slices(eng, trace, lo, trace.n_requests)
+    eng.drain()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def held_costs(want: dict, got: dict, tag: str) -> dict:
+    """``got`` against ``want`` (``CostBreakdown.as_dict``): integer
+    counters exact, floats at 1e-9; returns which fields are equal to the
+    last digit."""
+    for f in ("n_requests", "n_item_requests", "n_misses", "n_hits",
+              "items_transferred"):
+        if want[f] != got[f]:
+            raise AssertionError(f"{tag} {f}: {got[f]} != {want[f]}")
+    for f in ("transfer", "caching", "keepalive_rent", "total"):
+        if not np.isclose(got[f], want[f], rtol=1e-9, atol=0.0):
+            raise AssertionError(f"{tag} {f}: {got[f]} != {want[f]} at 1e-9")
+    return {f: got[f] == want[f] for f in want if f != "model"}
+
+
+def serve_phase(tag: str, config: str, trace, make_policy, env,
+                offline: dict, expect: tuple, per_window: tuple = (),
+                count_syncs: bool = False) -> dict:
+    """One configuration through the live engine on the card: the whole
+    trace in arrival slices (chunks of ``SERVE_CHUNK`` on a ring of
+    ``SERVE_RING``), held to the offline replay's totals (``offline``, the
+    ``slice`` / ``slice2`` line's costs), ``expect``'s kernels launched
+    (``per_window``'s once a window); with ``count_syncs`` every host sync
+    classified (``SyncCounter``: nothing but the lookups, the host clique
+    generation, the cost reads and the final state read).  Then a head of
+    ``SERVE_HEAD`` requests with the kernels and with their plain versions
+    (the same state bit for bit, no launch in the plain run), and a
+    snapshot taken mid-flight in that head restored into a fresh card
+    engine and into a CPU session that both finish the head: the same
+    state bit for bit as each other and as the uninterrupted run, costs at
+    1e-9."""
+    t_all = time.perf_counter()
+
+    def engine(**kw):
+        return LiveServingEngine(make_policy(), trace.n, trace.m, env=env,
+                                 chunk_size=SERVE_CHUNK, ring=SERVE_RING,
+                                 cgm="auto", **kw)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    eng = engine()
+    with (SyncCounter() if count_syncs else contextlib.nullcontext()) as sc:
+        wall = stream_live(eng, trace)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    got = eng.costs.as_dict()
+    last_digit = held_costs(offline, got, f"{tag} {config}")
+    for k in expect:
+        if launches[k] <= 0:
+            raise AssertionError(f"{tag} {config}: kernel {k} never launched")
+    windows = eng.policy.n_windows
+    for k in per_window:
+        if launches[k] != windows:
+            raise AssertionError(f"{tag} {config}: {launches[k]} {k} launches "
+                                 f"for {windows} windows")
+    syncs = None
+    if count_syncs:
+        syncs = dict(sc.counts)
+        if syncs["other"] or syncs["costs"] != eng.cost_reads:
+            raise AssertionError(
+                f"{tag} {config}: host syncs {syncs} ({eng.cost_reads} cost "
+                f"reads); unexpected ones at:\n" + "\n".join(sc.other))
+
+    head = trace.slice(0, min(SERVE_HEAD, trace.n_requests))
+    reset_launches()
+    kern = engine()
+    stream_live(kern, head)
+    head_launches = {k: fn.launches for k, fn in KERNELS.items()}
+    plain = engine(use_kernels=False)
+    t0 = time.perf_counter()
+    stream_live(plain, head)
+    plain_s = time.perf_counter() - t0
+    if {k: fn.launches for k, fn in KERNELS.items()} != head_launches:
+        raise AssertionError(f"{tag} {config}: the plain run launched a "
+                             "kernel")
+    same_state(kern.session.engine.state, plain.session.engine.state)
+    held_costs(kern.costs.as_dict(), plain.costs.as_dict(), f"{tag} plain")
+
+    cut = min(SERVE_CUT, head.n_requests - 1)
+    first = engine()
+    submit_slices(first, head, 0, cut)
+    pending = first.pending
+    snap = first.snapshot()
+    card = engine().restore(snap)
+    stream_live(card, head, lo=cut)
+    cpu = CacheSession(make_policy(), trace.n, trace.m, env=env,
+                       device="cpu").restore(snap)
+    live = snap["live"]
+    cpu.feed(live["pend_items"], live["pend_servers"], live["pend_times"])
+    cpu.feed(head.items[cut:], head.servers[cut:], head.times[cut:])
+    same_state(card.session.engine.state, cpu.engine.state)
+    same_state(card.session.engine.state, kern.session.engine.state)
+    held_costs(cpu.costs.as_dict(), card.costs.as_dict(), f"{tag} snapshot")
+    held_costs(kern.costs.as_dict(), card.costs.as_dict(), f"{tag} resumed")
+    line = {
+        "config": config, "policy": eng.policy.name, "n": trace.n,
+        "m": trace.m, "requests": trace.n_requests, "slice": SERVE_SLICE,
+        "chunk": SERVE_CHUNK, "ring": SERVE_RING,
+        "path": "device_cgm" if eng._cgm else "host_schedule",
+        "windows": windows, "costs": got,
+        "equal_to_offline_last_digit": last_digit,
+        "wall_s": wall, "requests_per_s": trace.n_requests / wall,
+        "chunks": eng.chunks, "ratchets": eng.compiles,
+        "ring_waits": eng.ring_waits, "cost_reads": eng.cost_reads,
+        "state_reads": eng.state_reads, "host_syncs": syncs,
+        "loop_stats": eng.loop_stats,
+        "syncs_per_chunk": (sum(v for k, v in eng.loop_stats.items()
+                                if k.startswith("sync_")) / eng.chunks),
+        "launches": launches,
+        "head_requests": head.n_requests, "head_launches": head_launches,
+        "head_kernel_equals_plain": True, "plain_head_s": plain_s,
+        "snapshot_cut": cut, "snapshot_pending": pending,
+        "snapshot_card_equals_cpu": True,
+        "phase_s": time.perf_counter() - t_all,
+    }
+    print(f"{tag} " + json.dumps(line), flush=True)
+    return line
+
+
+def serve_bench_phase() -> dict:
+    """``python -m repro_torch.bench.serve_bench --smoke`` in a process of
+    its own, so its cold engine is the first of a process (the kernels
+    are built already); returns its result line."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.bench.serve_bench", "--smoke"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"serve_bench --smoke failed "
+                             f"({proc.returncode}):\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    line = next(x for x in proc.stdout.splitlines()
+                if x.startswith("serve_bench "))
+    out = json.loads(line[len("serve_bench "):])
+    sc = out["scenarios"][0]
+    print("serve_bench " + json.dumps({
+        "profile": sc["profile"], "requests": sc["n_requests"],
+        "slice": sc["slice"], "device_cgm": sc["device_cgm"],
+        "session_req_per_s": sc["req_per_s_session"],
+        "live_cold_req_per_s": sc["req_per_s_live_cold"],
+        "live_warm_req_per_s": sc["req_per_s_live_warm"],
+        "s_per_session_feed": sc["s_per_session_feed"],
+        "device": out["device"]}), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1203,6 +1439,32 @@ def main() -> int:
     t0 = time.perf_counter()
     records2 = kernel_phase2(captured, args.seed, dev)
     phase("kernels_host_path", t0)
+
+    serve = {}
+    t0 = time.perf_counter()
+    net, net_tcg = configs["netflix-table2"][0], configs["netflix-table2"][1]
+    serve["serve_netflix"] = serve_phase(
+        "serve_netflix", "netflix-table2", net, lambda: akpc(net_tcg), None,
+        results["netflix-table2"]["costs"], expect=CGM_KERNELS,
+        per_window=("crm_update", "merge_density"))
+    phase("serve_netflix", t0)
+    t0 = time.perf_counter()
+    het = traces2["hetero-table2"]
+    het_env = env_for(het, CostParams(), PRICE_SIGMA)
+    het_tcg = results2["hetero-table2"]["akpc"]["t_cg"]
+    for name in ("akpc", "no_packing"):
+        expect = (STEP, "packed_lookup") + (
+            ("crm_update", "clique_pair_edges") if name == "akpc" else ())
+        serve[f"serve_hetero {name}"] = serve_phase(
+            "serve_hetero", "hetero-table2", het,
+            lambda name=name: host_policy(name, het_tcg, het_env,
+                                          "heterogeneous"),
+            het_env, results2["hetero-table2"][name]["costs"], expect,
+            count_syncs=True)
+    phase("serve_hetero", t0)
+    t0 = time.perf_counter()
+    serve_bench_phase()
+    phase("serve_bench", t0)
     t0 = time.perf_counter()
     if args.profile:
         for c, v in configs.items():
@@ -1279,6 +1541,11 @@ def main() -> int:
                 extra = {"launched_as": STEP,
                          "standalone_launches": bench_launches[name],
                          STEP: records2[STEP][main_cfg2]}
+        counter = STEP if name in SEG_KERNELS else name
+        for key, line in serve.items():
+            if line["launches"][counter]:
+                by_config.setdefault(key, {})["launches"] = \
+                    line["launches"][counter]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches, **rec, **extra,

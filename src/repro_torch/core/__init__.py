@@ -22,6 +22,7 @@ from .policy import (
     run_policy,
 )
 from .replay import TorchReplayEngine, run_policy_torch
+from .session import CacheSession, load_snapshot
 from .sweep import SweepEngine, SweepPoint, sweep_points
 
 __all__ = [
@@ -29,6 +30,7 @@ __all__ = [
     "AKPCPolicy",
     "BasePolicy",
     "CacheEnvironment",
+    "CacheSession",
     "CacheState",
     "CliquePartition",
     "CostBreakdown",
@@ -46,6 +48,7 @@ __all__ = [
     "WindowCRM",
     "get_cost_model",
     "get_policy",
+    "load_snapshot",
     "run_policy",
     "run_policy_torch",
     "sweep_points",

@@ -838,7 +838,8 @@ def cgm_loop_statics(cspec, carry0, *, enable_acm):
 
 def run_cgm_schedule(schedule, spec, statics, cspec, carry0, item_sizes, *,
                      charge="requested", enable_split=True, enable_acm=True,
-                     seed_new=True, use_kernels=True):
+                     seed_new=True, use_kernels=True, requests=None,
+                     loop_statics=None):
     """Execute one CGM schedule on the carry's device.
 
     Returns ``(final_carry, boundary_ofs, stats)``: the carry after the
@@ -847,25 +848,39 @@ def run_cgm_schedule(schedule, spec, statics, cspec, carry0, item_sizes, *,
     added edges walked, split worklist pops and merges.  The request tensors go to the
     device in one transfer; steps without requests are skipped (the
     schedule pads its step count to a bucket).
+
+    A caller that keeps the carry on the device across schedules (the
+    live server) passes what it holds there already: ``spec`` as
+    :func:`~repro_torch.core.replay.spec_to_device` returns it,
+    ``item_sizes`` as a float64 tensor, ``requests`` the schedule's
+    ``(items, servers, times)`` as int64 / int64 / float64 tensors, and
+    ``loop_statics`` the ``(gcap, full_merge)`` of :func:`cgm_loop_statics`
+    for the carry it built.
     """
     dev = carry0["E"].device
     n, m = schedule.n, schedule.m
     h = carry0["p_idx"].shape[0]
     wcap = carry0["wbuf"].shape[0]
-    gcap, full_merge = cgm_loop_statics(cspec, carry0, enable_acm=enable_acm)
-    spec_d = spec_to_device(spec, dev)
+    gcap, full_merge = (loop_statics if loop_statics is not None else
+                        cgm_loop_statics(cspec, carry0, enable_acm=enable_acm))
+    spec_d = (spec if isinstance(spec["dt"], torch.Tensor)
+              else spec_to_device(spec, dev))
     dt = spec_d["dt"]
     # dt[0] as a device scalar, not a Python float: CUDA divides a tensor
     # by a host scalar as a product with its reciprocal, which can round
     # differently from the numpy engine's division
     dt_e = dt[0]
     uses_sizes = "vol" in carry0
-    sz = (torch.as_tensor(np.asarray(item_sizes, np.float64), device=dev)
-          if item_sizes is not None else None)
+    sz = item_sizes
+    if sz is not None and not isinstance(sz, torch.Tensor):
+        sz = torch.as_tensor(np.asarray(sz, np.float64), device=dev)
     xs = schedule.xs
-    items = torch.as_tensor(xs["items"].astype(np.int64), device=dev)
-    servers = torch.as_tensor(xs["servers"].astype(np.int64), device=dev)
-    times = torch.as_tensor(xs["times"], dtype=torch.float64, device=dev)
+    if requests is None:
+        requests = (
+            torch.as_tensor(xs["items"].astype(np.int64), device=dev),
+            torch.as_tensor(xs["servers"].astype(np.int64), device=dev),
+            torch.as_tensor(xs["times"], dtype=torch.float64, device=dev))
+    items, servers, times = requests
     stats: dict = {}
     carry = dict(carry0)
     ofs = []

@@ -253,6 +253,13 @@ class CostModel:
     def params(self) -> CostParams:
         return self.env.params
 
+    def config_array(self) -> np.ndarray:
+        """Float fingerprint of the model's own configuration beyond the
+        environment (a tier schedule); a session snapshot stores it, so a
+        restore under a differently-configured model of the same name is
+        refused."""
+        return np.zeros(0)
+
     # -- batched hooks (the engine's hot path) ------------------------------
     def dt(self) -> np.ndarray:
         """(m,) per-server cache-lifetime extension Delta-t_j (Alg. 6)."""
@@ -406,6 +413,9 @@ class TieredCostModel(CostModel):
     def caching_rate(self, counts, sizes, servers) -> np.ndarray:
         self._check_bound()
         return self._mu[servers] * sizes
+
+    def config_array(self) -> np.ndarray:
+        return np.concatenate([self.breaks, self.rates])
 
 
 @register_cost_model("heterogeneous")

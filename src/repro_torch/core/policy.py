@@ -14,6 +14,11 @@ clique generation on the device and folds the window bookkeeping back
 into the policy.  Every other replay calls it from the host schedule
 (:func:`repro_torch.core.schedule.build_schedule`).
 
+``state_dict()`` / ``load_state_dict(state, partition=None)`` carry a
+policy's mutable state (window counts, size history, the TTL keep mask,
+the AKPC previous-window CRM) under ``repro``'s keys and dtypes, so a
+session snapshot taken in either package restores into the other.
+
 ``learned`` is not ported: its scorer lives in the reference's learned
 package, and :func:`get_policy` raises ``NotImplementedError`` for it.
 """
@@ -121,6 +126,33 @@ class BasePolicy:
         sizes = part.sizes()
         self.size_history.append(sizes[sizes > 1])
 
+    def state_dict(self) -> dict:
+        """The policy's mutable state as plain numpy, under the keys and
+        dtypes of ``repro``'s policies, so a snapshot of either package
+        restores into the other."""
+        hist = self.size_history
+        return {
+            "n_windows": np.int64(self.n_windows),
+            "cg_seconds": np.float64(self.cg_seconds),
+            "size_hist": (np.concatenate(hist).astype(np.int64)
+                          if hist else np.zeros(0, np.int64)),
+            "size_hist_lens": np.array([len(a) for a in hist], np.int64),
+        }
+
+    def load_state_dict(self, state: dict,
+                        partition: CliquePartition | None = None) -> None:
+        """Load a :meth:`state_dict`; ``partition`` is the session's
+        restored partition, which becomes the policy's current one."""
+        self.n_windows = int(state["n_windows"])
+        self.cg_seconds = float(state["cg_seconds"])
+        flat = np.asarray(state["size_hist"])
+        lens = np.asarray(state["size_hist_lens"]).astype(np.int64)
+        self.size_history = [
+            a.astype(np.int32) for a in np.split(flat, np.cumsum(lens)[:-1])
+        ] if lens.size else []
+        if partition is not None:
+            self._partition = partition
+
 
 def greedy_pair_matching(
     items: np.ndarray, n: int, theta: float, top_frac: float,
@@ -213,6 +245,16 @@ class TTLKeepOrNotPolicy(BasePolicy):
         part = CliquePartition.singletons(self.n)
         self._record(part, _time.perf_counter() - t0)
         return part
+
+    def state_dict(self) -> dict:
+        d = super().state_dict()
+        d["keep"] = self._keep.copy()
+        return d
+
+    def load_state_dict(self, state, partition=None) -> None:
+        super().load_state_dict(state, partition)
+        if "keep" in state:
+            self._keep = np.asarray(state["keep"]).astype(bool).copy()
 
 
 class PackCache2Policy(BasePolicy):
@@ -405,6 +447,41 @@ class AKPCPolicy(BasePolicy):
         self._prev_crm = crm
         self._record(part, _time.perf_counter() - t0)
         return part
+
+    def state_dict(self) -> dict:
+        """The base state plus the previous window's CRM (``crm``)."""
+        d = super().state_dict()
+        crm = self._prev_crm
+        if crm is None:
+            d["crm"] = {
+                "present": np.int64(0),
+                "hot_items": np.zeros(0, np.int32),
+                "raw": np.zeros((0, 0), np.int64),
+                "norm": np.zeros((0, 0), np.float32),
+                "binary": np.zeros((0, 0), bool),
+            }
+        else:
+            d["crm"] = {
+                "present": np.int64(1),
+                "hot_items": crm.hot_items.copy(),
+                "raw": crm.raw.copy(),
+                "norm": crm.norm.copy(),
+                "binary": crm.binary.copy(),
+            }
+        return d
+
+    def load_state_dict(self, state, partition=None) -> None:
+        super().load_state_dict(state, partition)
+        c = state["crm"]
+        if int(c["present"]):
+            self._prev_crm = WindowCRM(
+                hot_items=np.asarray(c["hot_items"]).astype(np.int32),
+                raw=np.asarray(c["raw"]).astype(np.int64),
+                norm=np.asarray(c["norm"]).astype(np.float32),
+                binary=np.asarray(c["binary"]).astype(bool),
+            )
+        else:
+            self._prev_crm = None
 
 
 _REGISTRY: dict[str, Callable[..., BasePolicy]] = {

@@ -386,10 +386,19 @@ def schedule_to_device(schedule, device) -> dict:
 def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
                  anchor: torch.Tensor, *, charge="requested",
                  use_kernels: bool = True, stats: dict | None = None,
-                 check_syncs: bool = False):
+                 check_syncs: bool = False, xs: dict | None = None,
+                 acc: torch.Tensor | None = None):
     """Execute one schedule on the device of ``E``; returns
     ``(E, anchor, acc)``, all on that device (``E`` and ``anchor`` are
     updated in place).
+
+    A caller that keeps the state on the device across schedules (the live
+    server) passes what it holds there already: ``spec`` in lane form as
+    :func:`lane_spec_to_device` returns it (a dict of tensors), ``xs`` the
+    step tensors as :func:`schedule_to_device` returns them, and ``acc``,
+    the (6,) or (S, 6) float64 accumulator to add this schedule's costs
+    into, in place.  Otherwise the spec and steps go up here and ``acc``
+    starts at zero.
 
     ``E`` (n+1, m) / ``anchor`` (n+1,) with an unlaned ``spec`` give
     ``acc`` (6,).  With a leading axis of S scenario lanes, ``E`` (S, n+1,
@@ -418,7 +427,8 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
         raise ValueError("run_schedule needs a contiguous E and anchor")
     E3, A2 = (E, anchor) if laned else (E[None], anchor[None])
     S = E3.shape[0]
-    spec_d = lane_spec_to_device(spec, dev, laned)
+    spec_d = (spec if isinstance(spec["dt"], torch.Tensor)
+              else lane_spec_to_device(spec, dev, laned))
     dt = spec_d["dt"]                               # (S, m)
     dt0 = dt[:, :1]
     scan_fn = _scan_hook(use_kernels)
@@ -428,13 +438,17 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
         if ids.size and (ids.min() < 0 or ids.max() >= m):
             raise ValueError(f"run_schedule: {key} holds server ids outside "
                              f"[0, {m}): [{ids.min()}, {ids.max()}]")
-    xs = schedule_to_device(schedule, dev)
+    if xs is None:
+        xs = schedule_to_device(schedule, dev)
     inst = np.asarray(schedule.xs["inst"])
     now = np.asarray(schedule.xs["inst_now"])
     n_ev = np.asarray(schedule.xs["val"]).sum(axis=1)
     live = (n_ev > 0) | inst
     widest = int(np.argmax(n_ev)) if capture.INPUTS is not None else -1
-    acc = torch.zeros((S, N_ACC), dtype=torch.float64, device=dev)
+    if acc is None:
+        acc = torch.zeros(((S, N_ACC) if laned else N_ACC),
+                          dtype=torch.float64, device=dev)
+    acc2 = acc if laned else acc[None]
     steps = installs = 0
     seen: dict = {}
     check = check_syncs and dev.type == "cuda"
@@ -447,7 +461,7 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
             if inst[b]:
                 _install_step(E3, A2, x, dt, float(now[b]))
                 installs += 1
-            _replay_step(E3, A2, acc, x, spec_d, dt, dt0, kind=statics,
+            _replay_step(E3, A2, acc2, x, spec_d, dt, dt0, kind=statics,
                          charge=charge, const_dt=schedule.const_dt,
                          scan_fn=scan_fn,
                          capture=seen if b == widest else None)
@@ -459,7 +473,7 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
         capture.keep_largest(name, S * int(n_ev[widest]), lambda: inputs)
     if stats is not None:
         stats.update(steps=steps, installs=installs, sync_scan=0, lanes=S)
-    return E, anchor, (acc if laned else acc[0])
+    return E, anchor, acc
 
 
 def build_host_schedule(partition0, trace, clique_generator, t_cg, *,

@@ -45,6 +45,8 @@ from repro_torch.kernels import (
     unpacked_lookup_plain,
 )
 from repro_torch.kernels.packed_lookup import CliqueLookup, clique_lookup
+from repro_torch.serving import LiveServingEngine
+from repro_torch.serving import live as live_module
 from repro_torch.traces import SynthConfig, synth_trace
 
 #: the kernels of the AKPC replay with the device clique generation
@@ -605,3 +607,122 @@ def test_clique_lookup_on_card(cuda_device):
     assert (got[items < 0] == -1).all()
     small = look(clique_of, items[:3])
     assert np.array_equal(small, got[:3])
+
+
+# ---------------------------------------------------------------------------
+# the live serving engine on the card
+# ---------------------------------------------------------------------------
+def _serve_case(config):
+    """(trace, policy factory, env) of a live-engine card test: ``akpc``
+    at a uniform dt (the device clique generation), or ``akpc`` /
+    ``no_packing`` under per-server prices (the host schedule)."""
+    hetero = config != "akpc-table1"
+    trace = synth_trace(SynthConfig(
+        kind="netflix", n_items=60, n_servers=40, n_requests=12_000,
+        t_max=6.0, bundle_cover=1.0, bundle_zipf=0.7, seed=4,
+        size_dist="lognormal" if hetero else "unit"))
+    env = (CacheEnvironment.resolve(CacheEnvironment.skewed(
+        trace.n, trace.m, CostParams(), price_sigma=1.0, seed=1), trace,
+        CostParams()) if hetero else None)
+    name = config.split("-")[0]
+    kw = {} if name == "no_packing" else dict(t_cg=0.4, top_frac=0.5)
+
+    def policy():
+        return get_policy(name, params=CostParams(), env=env,
+                          cost_model="heterogeneous" if hetero else "table1",
+                          **kw)
+
+    return trace, policy, env
+
+
+def _serve(eng, trace, slice_n=97):
+    """Stream the trace in arrival slices; the ring never holds more than
+    ``ring`` chunks."""
+    for lo in range(0, trace.n_requests, slice_n):
+        hi = lo + slice_n
+        eng.submit(trace.items[lo:hi], trace.servers[lo:hi],
+                   trace.times[lo:hi])
+        assert eng.in_flight <= eng.ring
+    eng.drain()
+    assert eng.in_flight == 0
+    return eng
+
+
+def _same_serve_state(a, b):
+    sa, sb = a.session.engine.state, b.session.engine.state
+    assert np.array_equal(sa.partition.clique_of, sb.partition.clique_of)
+    assert np.array_equal(sa.E, sb.E)
+    assert np.array_equal(sa.anchor, sb.anchor)
+
+
+@pytest.mark.parametrize("config", ["akpc-table1", "akpc-hetero",
+                                    "no_packing-hetero"])
+def test_live_engine_on_card_equals_plain_and_cpu(cuda_device, config):
+    """The live engine on the card, with its kernels, equals the same run
+    with the plain versions on the card (bit for bit, costs too), which
+    equals the CPU run (state bit for bit, costs at 1e-9); the path's
+    kernels launch, and only in the kernel run."""
+    trace, policy, env = _serve_case(config)
+
+    def engine(**kw):
+        return LiveServingEngine(policy(), trace.n, trace.m, env=env,
+                                 chunk_size=1024, ring=3, **kw)
+
+    for fn in KERNELS.values():
+        fn.launches = 0
+    card = _serve(engine(), trace)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    if config == "akpc-table1":
+        assert card._cgm
+        want = CGM_KERNELS
+        assert launches["merge_density"] == card.policy.n_windows
+    else:
+        assert not card._cgm
+        want = ("seg_scan_step", "packed_lookup")
+        if config == "akpc-hetero":
+            want += ("crm_update", "clique_pair_edges")
+    assert all(launches[k] > 0 for k in want), launches
+    plain = _serve(engine(use_kernels=False), trace)
+    assert {k: fn.launches for k, fn in KERNELS.items()} == launches
+    _same_serve_state(card, plain)
+    assert card.costs.as_dict() == plain.costs.as_dict()
+    cpu = _serve(engine(device="cpu"), trace)
+    _same_serve_state(card, cpu)
+    a, b = card.costs.as_dict(), cpu.costs.as_dict()
+    for key in ("n_requests", "n_item_requests", "n_misses", "n_hits",
+                "items_transferred"):
+        assert a[key] == b[key]
+    for key in ("transfer", "caching", "keepalive_rent", "total"):
+        assert np.isclose(a[key], b[key], rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.parametrize("config", ["akpc-table1", "no_packing-hetero"])
+def test_live_ring_buffers_survive_a_slow_stream(cuda_device, config,
+                                                 monkeypatch):
+    """A stream slowed on the card (``torch.cuda._sleep`` before each
+    chunk's uploads) lets the host run ``ring`` chunks ahead: a pinned
+    buffer refilled before its copy landed would change the result.  The
+    slowed run equals the plain-speed one bit for bit, its submits waited
+    on the ring (on the host-schedule path), and no more than ``ring``
+    chunks were ever in flight."""
+    trace, policy, env = _serve_case(config)
+
+    def run():
+        return _serve(LiveServingEngine(policy(), trace.n, trace.m, env=env,
+                                        chunk_size=256, ring=2), trace)
+
+    fast = run()
+    stage = live_module.LiveServingEngine._stage
+
+    def slow_stage(self, arrays):
+        torch.cuda._sleep(20_000_000)
+        return stage(self, arrays)
+
+    monkeypatch.setattr(live_module.LiveServingEngine, "_stage", slow_stage)
+    slow = run()
+    if not slow._cgm:
+        # the device CGM's loops wait for the card inside a chunk; the
+        # host schedule's dispatch does not, so there the ring fills
+        assert slow.ring_waits > 0
+    _same_serve_state(fast, slow)
+    assert fast.costs.as_dict() == slow.costs.as_dict()
