@@ -80,7 +80,34 @@
     ``python -m repro_torch.bench.serve_bench --smoke`` in a process of
     its own (session, live cold and live warm req/s, printed, not gated
     here);
-11. prints the kernels' JSON line and, last, the result line.
+11. ``learned``: the learned keep-or-not policy on fig11's regime-shift
+    stress trace (60 items x 12 servers, rho 4), ``--requests4`` requests:
+    ``train_policy`` on the card with no host sync inside its step loop
+    and on the CPU from the same inputs (weights within 1e-5 of each
+    leaf's magnitude), the card-trained scorer served through
+    ``run_policy`` on the card under table1 and heterogeneous pricing
+    (one ``seg_scan_step`` a step under per-server dt; on a
+    200,000-request head the kernel run == the plain run == the CPU's,
+    bit for bit), its total against
+    ``no_packing``, ``ttl``, ``packcache`` and ``dp_greedy`` (it must beat
+    ``no_packing``), and the heterogeneous run streamed through a
+    ``LiveServingEngine`` in 128-request slices (totals == offline);
+12. ``pipeline``: ``PackedDataPipeline`` at ``ShardStore``'s defaults, 64
+    rows of 2,048 tokens, 2,000 steps on the ``session`` and ``live``
+    backends in lockstep: equal token batches, equal costs after
+    ``drain()``, the live device clique generation's kernels once a window;
+    the live engine's request stream replayed with the plain versions (no
+    launch) and on the CPU: the same state bit for bit, costs at 1e-9;
+13. ``expert_cache``: ``ExpertCacheManager`` at DeepSeek-V2's routing
+    shape (160 experts, top-6, 4 hosts, 256 tokens a step, 5,000 steps):
+    equal ``stats()`` on both backends, the live engine's stream replayed
+    with the plain versions and on the CPU as for the pipeline, a live
+    snapshot at step 2,500
+    finishing in a ``session`` manager with equal totals; then the packed
+    table of Granite-MoE-width expert rows (40 x 3 x 1536 x 512 f16)
+    gathered a step's cliques at a time by ``packed_lookup`` (== its plain
+    version), timed on the card alone against ``index_select``;
+14. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
 Writes the kernel build log (and ``--profile`` tables) under ``--out``
@@ -105,7 +132,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.bench import kernel_bench  # noqa: E402
+from repro_torch.bench import fig11, kernel_bench  # noqa: E402
 from repro_torch.bench.common import (  # noqa: E402
     PEAK_FP32,
     PEAK_TF32,
@@ -163,7 +190,13 @@ from repro_torch.kernels import (  # noqa: E402
     unpacked_lookup,
     unpacked_lookup_plain,
 )
-from repro_torch.serving import LiveServingEngine  # noqa: E402
+from repro_torch.data import PackedDataPipeline, ShardStore  # noqa: E402
+from repro_torch.learned import hindsight_windows, train_policy  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    ExpertCacheManager,
+    LiveServingEngine,
+)
 from repro_torch.traces import SynthConfig, paper_trace, synth_trace  # noqa: E402
 
 #: (omega, gamma) cases of the merge_density check: the path's default
@@ -227,6 +260,34 @@ SERVE_HEAD, SERVE_CUT = 200_000, 2 * 65_536 + 77
 SYNC_KINDS = {"gather": "lookup", "crm_matmul": "host_cgm",
               "pair_edges": "host_cgm", "_sync_costs": "costs",
               "_sync_state": "state"}
+
+
+#: the learned phase: fig11's regime-shift stress trace, trained on the
+#: training seed, evaluated on seed 101 under both pricing models; the
+#: head also replayed with the plain versions and on the CPU; the trainer's bar on the card against
+#: the CPU (tests/test_torch_learned.py's TRAIN_LEAF_RTOL); the rivals
+#: ranked beside ``learned``
+LEARNED_EVAL_SEED = 101
+LEARNED_HEAD = 200_000
+TRAIN_LEAF_RTOL = 1e-5
+LEARNED_RIVALS = ("no_packing", "ttl", "packcache", "dp_greedy")
+#: the pipeline phase: ShardStore's defaults (256 shards x 4,096 tokens,
+#: vocab 32,000, 8 domains), 64 rows of 2,048 tokens a step, T_CG 64
+PIPE_ROWS, PIPE_SEQ, PIPE_TCG, PIPE_STEPS = 64, 2048, 64.0, 2000
+#: the expert-cache phase: DeepSeek-V2's routing (160 routed experts,
+#: top-6; ``src/repro/configs/deepseek_v2_236b.py``), 4 hosts, T_CG 32,
+#: 256 tokens a step; experts co-activate in fixed groups of 8, one hot;
+#: a live snapshot at EXPERT_CUT restored into a session manager
+EXPERTS, EXPERT_TOP_K, EXPERT_GROUP = 160, 6, 8
+EXPERT_HOSTS, EXPERT_TCG, EXPERT_TOKENS = 4, 32.0, 256
+EXPERT_STEPS, EXPERT_CUT, EXPERT_HOT = 5000, 2500, 0.7
+#: the packed-table gather at Granite-MoE's expert width (40 experts,
+#: top-8, wi / wg / wo of 1536 x 512 f16 each; ``src/repro/configs/
+#: granite_moe_3b_a800m.py``)
+GATHER_EXPERTS, GATHER_TOP_K, GATHER_ROW = 40, 8, (3, 1536, 512)
+GATHER_STEPS = 400
+#: CUDA-graph calls of the expert gather (each copies tens of MB)
+GATHER_CALLS = 10
 
 
 def make_trace(config: str, n_requests: int, seed: int):
@@ -1129,9 +1190,12 @@ class SyncCounter:
     (the live engine's ring) are not syncs to that mode; the engine counts
     them itself."""
 
+    def __init__(self, kinds: dict | None = None):
+        self.kinds = SYNC_KINDS if kinds is None else kinds
+
     def __enter__(self):
         self.counts = dict.fromkeys(
-            (*sorted(set(SYNC_KINDS.values())), "other"), 0)
+            (*sorted(set(self.kinds.values())), "other"), 0)
         self.other: list = []
         self._catch = warnings.catch_warnings()
         self._catch.__enter__()
@@ -1147,8 +1211,8 @@ class SyncCounter:
             self._show(message, category, filename, lineno, file, line)
             return
         stack = traceback.extract_stack()[:-1]
-        kind = next((SYNC_KINDS[f.name] for f in reversed(stack)
-                     if f.name in SYNC_KINDS), "other")
+        kind = next((self.kinds[f.name] for f in reversed(stack)
+                     if f.name in self.kinds), "other")
         self.counts[kind] += 1
         if kind == "other" and len(self.other) < 3:
             self.other.append("".join(traceback.format_list(stack[-4:])))
@@ -1324,6 +1388,394 @@ def serve_bench_phase() -> dict:
     return out
 
 
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in KERNELS.items()}
+
+
+def launch_delta(before: dict) -> dict:
+    return {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+
+
+def learned_phase(n_requests: int) -> dict:
+    """The learned keep-or-not policy at full size (fig11's regime-shift
+    trace): ``train_policy`` on the card (no host sync inside its step
+    loop, ``SyncCounter``) and on the CPU from the same inputs, weights
+    within the CPU test's bar; the card-trained scorer served through
+    ``run_policy`` on the card under table1 and heterogeneous pricing
+    (one ``seg_scan_step`` a step under per-server dt; on a head, the
+    kernel run == the plain run == the CPU's, bit for bit), ranked against
+    ``no_packing`` / ``ttl`` / ``packcache`` / ``dp_greedy`` (fails unless
+    it beats ``no_packing``), and the heterogeneous run streamed through a
+    ``LiveServingEngine`` in arrival slices (totals == offline at 1e-9).
+    Returns the ``learned`` lines by pricing model."""
+    params = CostParams(rho=4.0)
+    train_tr = fig11.stress_trace("regime_shift", fig11.TRAIN_SEED,
+                                  n_requests)
+    ev = fig11.stress_trace("regime_shift", LEARNED_EVAL_SEED, n_requests)
+    head = ev.slice(0, min(LEARNED_HEAD, ev.n_requests))
+    out = {}
+    for cm in fig11.MODELS:
+        t_all = time.perf_counter()
+        env = fig11.env_for(cm, params)
+        t_cg = t_cg_for(train_tr, params, env=env, cost_model=cm)
+        # the labels alone, so the step loop's share of a training is the
+        # rest of its wall time
+        t0 = time.perf_counter()
+        X, _, _ = hindsight_windows(train_tr, env, t_cg, params=params,
+                                    cost_model=cm)
+        labels_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SyncCounter({"train_steps": "train_loop"}) as sc:
+            lp = train_policy(train_tr, env=env, t_cg=t_cg, params=params,
+                              cost_model=cm)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        if sc.counts["train_loop"]:
+            raise AssertionError(
+                f"learned {cm}: {sc.counts['train_loop']} host syncs inside "
+                "the training step loop")
+        t0 = time.perf_counter()
+        lp_cpu = train_policy(train_tr, env=env, t_cg=t_cg, params=params,
+                              cost_model=cm, device="cpu")
+        train_cpu_s = time.perf_counter() - t0
+        worst = 0.0
+        for (path, a), (_, b) in zip(tree_leaves(lp_cpu.w),
+                                     tree_leaves(lp.w)):
+            rel = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))
+            worst = max(worst, rel)
+            if rel > TRAIN_LEAF_RTOL:
+                raise AssertionError(
+                    f"learned {cm}: trained leaf {path} differs card vs CPU "
+                    f"by {rel:.3g} of its magnitude (bar {TRAIN_LEAF_RTOL})")
+
+        def pol(name):
+            return get_policy(name, params=params, env=env, cost_model=cm,
+                              **fig11.policy_kwargs(name, t_cg, lp))
+
+        reset_launches()
+        torch.cuda.synchronize()
+        res = run_policy(pol("learned"), ev)
+        launches = launch_counts()
+        st = res.loop_stats
+        dt = np.asarray(get_cost_model(cm, CacheEnvironment.resolve(
+            env, ev, params)).dt())
+        per_server = bool((dt != dt[0]).any())
+        if st.get("path") != "host_schedule" or launches["packed_lookup"] <= 0:
+            raise AssertionError(f"learned {cm}: not the host schedule with "
+                                 f"its lookups ({st.get('path')}, "
+                                 f"{launches['packed_lookup']})")
+        want = st["steps"] if per_server else 0
+        if launches[STEP] != want or any(launches[k] for k in SEG_KERNELS):
+            raise AssertionError(
+                f"learned {cm}: {launches[STEP]} seg_scan_step launches for "
+                f"{st['steps']} steps (per-server dt {per_server})")
+        card_head = run_policy(pol("learned"), head)
+        before = launch_counts()
+        plain = run_policy_torch(pol("learned"), head, use_kernels=False)
+        if launch_counts() != before:
+            raise AssertionError("the plain run launched a kernel")
+        same_state(card_head.state, plain.state)
+        same_costs(card_head, plain, f"learned {cm} plain head")
+        cpu_head = run_policy(pol("learned"), head, device="cpu")
+        same_state(card_head.state, cpu_head.state)
+        same_costs(card_head, cpu_head, f"learned {cm} CPU head")
+        totals = {"learned": res.total}
+        for name in LEARNED_RIVALS:
+            totals[name] = run_policy(pol(name), ev).total
+        if not totals["learned"] < totals["no_packing"]:
+            raise AssertionError(
+                f"learned {cm}: {totals['learned']} does not beat "
+                f"no_packing's {totals['no_packing']}")
+        line = {
+            "config": "fig11 regime_shift", "cost_model": cm,
+            "n": ev.n, "m": ev.m, "requests": ev.n_requests, "t_cg": t_cg,
+            "train_seed": fig11.TRAIN_SEED, "eval_seed": LEARNED_EVAL_SEED,
+            "train": {"examples": int(X.shape[0]), "labels_s": labels_s,
+                      "wall_s": train_s, "rest_s": train_s - labels_s,
+                      "syncs": sc.counts},
+            "train_cpu": {"wall_s": train_cpu_s,
+                          "rest_s": train_cpu_s - labels_s},
+            "train_card_vs_cpu_worst_rel": worst,
+            "windows": res.n_windows, "per_server_dt": per_server,
+            "wall_s": res.wall_seconds,
+            "serve_requests_per_s": ev.n_requests / res.wall_seconds,
+            "head_wall_s": card_head.wall_seconds,
+            "plain_head_wall_s": plain.wall_seconds, "steps": st["steps"],
+            "schedule_s": st["schedule_s"], "scan_s": st["scan_s"],
+            "launches": launches, "totals": totals,
+            "ranking": sorted(totals, key=totals.get),
+            "costs": res.costs.as_dict(),
+            "head_requests": head.n_requests,
+        }
+        if cm == "heterogeneous":
+            eng = LiveServingEngine(pol("learned"), ev.n, ev.m, env=env,
+                                    chunk_size=SERVE_CHUNK, ring=SERVE_RING)
+            reset_launches()
+            wall = stream_live(eng, ev)
+            held_costs(res.costs.as_dict(), eng.costs.as_dict(),
+                       f"learned {cm} live")
+            line["live"] = {"wall_s": wall,
+                            "requests_per_s": ev.n_requests / wall,
+                            "slice": SERVE_SLICE, "chunk": SERVE_CHUNK,
+                            "chunks": eng.chunks,
+                            "ring_waits": eng.ring_waits,
+                            "launches": launch_counts()}
+        line["phase_s"] = time.perf_counter() - t_all
+        print("learned " + json.dumps(line), flush=True)
+        out[cm] = line
+    return out
+
+
+def record_feeds(cache) -> list:
+    """Keep every ``(items, servers, times)`` fed to ``cache`` from now
+    on, so the same request stream can be replayed elsewhere."""
+    fed: list = []
+    feed = cache.feed
+
+    def recorded(items, servers, times):
+        fed.append((items, servers, times))
+        return feed(items, servers, times)
+
+    cache.feed = recorded
+    return fed
+
+
+def replay_plain_and_cpu(tag: str, live, make_policy, env, fed) -> dict:
+    """The request stream ``fed`` that a drained card engine ``live``
+    served, replayed through a card engine that runs the kernels' plain
+    versions (no launch) and through a CPU session: both leave ``live``'s
+    state bit for bit, costs at 1e-9.  Returns their seconds."""
+    items, servers, times = (np.concatenate(c) for c in zip(*fed))
+    before = launch_counts()
+    t0 = time.perf_counter()
+    plain = LiveServingEngine(make_policy(), live.n, live.m, env=env,
+                              device=live.device, use_kernels=False)
+    plain.feed(items, servers, times)
+    plain.drain()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if launch_counts() != before:
+        raise AssertionError(f"{tag}: the plain run launched a kernel")
+    t0 = time.perf_counter()
+    cpu = CacheSession(make_policy(), live.n, live.m, env=env, device="cpu")
+    cpu.feed(items, servers, times)
+    cpu_s = time.perf_counter() - t0
+    for other in (plain.session, cpu):
+        same_state(live.session.engine.state, other.engine.state)
+    held_costs(live.costs.as_dict(), plain.costs.as_dict(), f"{tag} plain")
+    held_costs(cpu.costs.as_dict(), live.costs.as_dict(), f"{tag} CPU")
+    return {"requests": int(len(times)), "plain_s": plain_s, "cpu_s": cpu_s,
+            "kernel_equals_plain": True, "card_equals_cpu": True}
+
+
+def pipeline_phase() -> dict:
+    """``PackedDataPipeline`` at ShardStore's defaults on the ``session``
+    and the ``live`` backend in lockstep: the same token batches bit for
+    bit, costs at 1e-9 after ``drain()``, and the live engine's device
+    clique generation launching ``crm_update``, ``clique_pair_edges`` and
+    ``merge_density`` once a window.  The live engine's request stream is
+    then replayed with the plain versions and on the CPU
+    (``replay_plain_and_cpu``).  Returns the ``pipeline`` line."""
+    pipes = {b: PackedDataPipeline(ShardStore(), batch_rows=PIPE_ROWS,
+                                   seq_len=PIPE_SEQ, t_cg=PIPE_TCG,
+                                   backend=b)
+             for b in ("session", "live")}
+    secs = dict.fromkeys(pipes, 0.0)
+    launches = {b: dict.fromkeys(KERNELS, 0) for b in pipes}
+    fed = record_feeds(pipes["live"].cache)
+
+    def timed(b, fn):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        secs[b] += time.perf_counter() - t0
+        for k, v in launch_delta(before).items():
+            launches[b][k] += v
+        return r
+
+    torch.cuda.synchronize()
+    for step in range(PIPE_STEPS):
+        a = timed("session", lambda: next(pipes["session"]))
+        b = timed("live", lambda: next(pipes["live"]))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"pipeline: token batches differ at step "
+                                 f"{step}")
+    live = pipes["live"].cache
+    t0 = time.perf_counter()
+    timed("live", lambda: (live.drain(), torch.cuda.synchronize()))
+    drain_s = time.perf_counter() - t0
+    ses = pipes["session"].cache
+    got = held_costs(ses.costs.as_dict(), live.costs.as_dict(),
+                     "pipeline live")
+    windows = live.policy.n_windows
+    for k in CGM_KERNELS:
+        if launches["live"][k] != windows:
+            raise AssertionError(f"pipeline live: {launches['live'][k]} {k} "
+                                 f"launches for {windows} windows")
+    same_state(ses.engine.state, live.session.engine.state)
+    p = pipes["live"]
+    checks = replay_plain_and_cpu(
+        "pipeline", live,
+        lambda: get_policy("akpc", params=p.params, t_cg=PIPE_TCG,
+                           top_frac=1.0, cost_model=p.cost_model),
+        p.env, fed)
+    tel = p.telemetry
+    line = {
+        "store": {"shards": 256, "shard_tokens": 4096, "vocab": 32000,
+                  "domains": 8},
+        "rows": PIPE_ROWS, "seq_len": PIPE_SEQ, "t_cg": PIPE_TCG,
+        "steps": PIPE_STEPS, "windows": windows,
+        "shards_fetched": tel.shards_fetched,
+        "requests": ses.costs.n_requests,
+        "path": "device_cgm" if live._cgm else "host_schedule",
+        "s_per_step": {b: secs[b] / PIPE_STEPS for b in pipes},
+        "live_drain_s": drain_s, "live_chunks": live.chunks,
+        "launches": launches, "costs": ses.costs.as_dict(),
+        "equal_last_digit": got, "replays": checks,
+    }
+    print("pipeline " + json.dumps(line), flush=True)
+    return line
+
+
+def expert_observations(rng, n_experts: int, top_k: int, steps: int):
+    """One step's routing outcome a step: ``EXPERT_TOKENS`` tokens drawn
+    from one group of ``EXPERT_GROUP`` co-activated experts (the hot group
+    0 with probability ``EXPERT_HOT``), and the serving host."""
+    groups = n_experts // EXPERT_GROUP
+    obs = []
+    for _ in range(steps):
+        g = 0 if rng.random() < EXPERT_HOT else int(rng.integers(0, groups))
+        members = np.arange(g * EXPERT_GROUP, (g + 1) * EXPERT_GROUP)
+        obs.append((rng.choice(members, size=(EXPERT_TOKENS, top_k)),
+                    int(rng.integers(0, EXPERT_HOSTS))))
+    return obs
+
+
+def expert_cache_phase(seed: int, dev) -> tuple[dict, dict]:
+    """``ExpertCacheManager`` at DeepSeek-V2's routing shape on the card:
+    the ``session`` and ``live`` backends give equal ``stats()``; the live
+    engine's request stream replayed with the plain versions and on the
+    CPU leaves its state bit for bit (``replay_plain_and_cpu``); a live
+    snapshot taken mid-stream restored into a ``session`` manager keeps
+    equal totals to the end.  Then the packed expert table at
+    Granite-MoE's width, one step's activated cliques gathered with
+    ``packed_lookup`` (== its plain version and the host table, bit for
+    bit), timed on the card alone against ``index_select``.  Returns the
+    ``expert_cache`` line and the gather's kernel record."""
+    rng = np.random.default_rng(seed)
+    obs = expert_observations(rng, EXPERTS, EXPERT_TOP_K, EXPERT_STEPS)
+
+    def manager(backend):
+        return ExpertCacheManager(EXPERTS, EXPERT_HOSTS, t_cg=EXPERT_TCG,
+                                  backend=backend)
+
+    secs, launches = {}, {}
+    live, ses = manager("live"), manager("session")
+    fed = record_feeds(live.session)
+    for name, mgr in (("live", live), ("session", ses)):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, (topk, host) in enumerate(obs):
+            if name == "live" and i == EXPERT_CUT:
+                snap = live.snapshot()
+            mgr.observe(topk, host=host)
+        mgr._settle()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = launch_delta(before)
+    sl, ss = live.stats(), ses.stats()
+    if not np.isclose(sl.akpc_total, ss.akpc_total, rtol=1e-9, atol=0.0):
+        raise AssertionError(f"expert_cache: live {sl.akpc_total} != "
+                             f"session {ss.akpc_total}")
+    if sl.nopack_total != ss.nopack_total or sl.cliques != ss.cliques:
+        raise AssertionError("expert_cache: no_packing totals or cliques "
+                             "differ between the backends")
+    checks = replay_plain_and_cpu(
+        "expert_cache", live.session,
+        lambda: get_policy("akpc", params=live.params, t_cg=EXPERT_TCG,
+                           top_frac=1.0, cost_model=live.cost_model),
+        live.env, fed)
+    standby = manager("session")
+    standby.restore(snap)
+    for topk, host in obs[EXPERT_CUT:]:
+        standby.observe(topk, host=host)
+    sb = standby.stats()
+    if not np.isclose(sb.akpc_total, sl.akpc_total, rtol=1e-9, atol=0.0):
+        raise AssertionError(f"expert_cache: the restored standby's "
+                             f"{sb.akpc_total} != live {sl.akpc_total}")
+    if sb.nopack_total != sl.nopack_total:
+        raise AssertionError("expert_cache: the standby's no_packing total "
+                             "differs")
+    line = {
+        "config": "deepseek_v2_236b routing", "experts": EXPERTS,
+        "top_k": EXPERT_TOP_K, "hosts": EXPERT_HOSTS, "t_cg": EXPERT_TCG,
+        "tokens_per_step": EXPERT_TOKENS, "steps": EXPERT_STEPS,
+        "snapshot_step": EXPERT_CUT, "windows": live.session.policy.n_windows,
+        "path": "device_cgm" if live.session._cgm else "host_schedule",
+        "akpc_total": sl.akpc_total, "nopack_total": sl.nopack_total,
+        "saving_pct": sl.saving_pct, "cliques": len(sl.cliques),
+        "s_per_step": {k: v / EXPERT_STEPS for k, v in secs.items()},
+        "launches": launches, "replays": checks,
+    }
+
+    # the packed table gather at Granite-MoE's expert width
+    g_obs = expert_observations(rng, GATHER_EXPERTS, GATHER_TOP_K,
+                                GATHER_STEPS)
+    mgr = ExpertCacheManager(GATHER_EXPERTS, EXPERT_HOSTS, t_cg=EXPERT_TCG,
+                             backend="live")
+    for topk, host in g_obs:
+        mgr.observe(topk, host=host)
+    weights = rng.standard_normal((GATHER_EXPERTS, *GATHER_ROW),
+                                  dtype=np.float32).astype(np.float16)
+    table, where = mgr.packed_tables(weights)
+    step_experts = np.unique(g_obs[-1][0])
+    ids_h = np.unique(where[step_experts, 0]).astype(np.int32)
+    C, omega = table.shape[:2]
+    table_d = torch.from_numpy(table).reshape(C, omega, -1).to(dev)
+    ids = torch.from_numpy(ids_h).to(dev)
+    reset_launches()
+    got = packed_lookup(table_d, ids)
+    path = packed_lookup.last_path
+    gather_launches = packed_lookup.launches
+    torch.cuda.synchronize()
+    if not torch.equal(got.cpu(), torch.from_numpy(
+            table[ids_h].reshape(len(ids_h), omega, -1))):
+        raise AssertionError("expert gather differs from the host table")
+    report: list = []
+    err = held_equal(report, "packed_lookup", "expert table",
+                     lambda: packed_lookup(table_d, ids, ids_checked=True),
+                     lambda: packed_lookup_plain(table_d, ids))
+    R = int(ids.numel())
+    row_bytes = omega * table_d.shape[2] * table_d.element_size()
+
+    def kern():
+        return packed_lookup(table_d, ids, ids_checked=True)
+
+    def lib():
+        return table_d.index_select(0, ids.to(torch.int64))
+
+    rec = {
+        "shape": {"C": C, "omega": omega, "row": list(GATHER_ROW),
+                  "dtype": "float16", "R": R, "row_bytes": row_bytes,
+                  "table_bytes": int(table_d.numel() * 2), "path": path},
+        "max_abs_err": err,
+        "ms": cuda_time(kern, GATHER_CALLS),
+        "plain_ms": cuda_time(lambda: packed_lookup_plain(table_d, ids),
+                              GATHER_CALLS),
+        "library_ms": cuda_time(lib, GATHER_CALLS),
+        "device_ms": cuda_graph_time(kern, GATHER_CALLS),
+        "library_device_ms": cuda_graph_time(lib, GATHER_CALLS),
+        # the ids, each gathered row read once, the output written once
+        **bound(0.0, PEAK_FP32, 4.0 * R + 2.0 * R * row_bytes),
+        "launches": gather_launches, "cliques": len(mgr.cliques()),
+    }
+    line["gather"] = rec
+    print("expert_cache " + json.dumps(line), flush=True)
+    return line, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1335,6 +1787,9 @@ def main() -> int:
                     "(and of the fig6 sweep's trace)")
     ap.add_argument("--requests3", type=int, default=1_000_000,
                     help="requests of each trace of the fig10 sweep")
+    ap.add_argument("--requests4", type=int, default=1_000_000,
+                    help="requests of the learned phase's training and "
+                    "evaluation traces")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="also profile the akpc replay of each device-CGM "
                     "configuration's first N requests (tables under --out)")
@@ -1358,7 +1813,8 @@ def main() -> int:
     print("tf32: matmul allow_tf32=False cudnn allow_tf32=False", flush=True)
     for flag, n in (("requests", args.requests),
                     ("requests2", args.requests2),
-                    ("requests3", args.requests3)):
+                    ("requests3", args.requests3),
+                    ("requests4", args.requests4)):
         if n != 1_000_000:
             print(f"cut: --{flag} {n} per configuration (n and m "
                   "unchanged)", flush=True)
@@ -1466,6 +1922,22 @@ def main() -> int:
     serve_bench_phase()
     phase("serve_bench", t0)
     t0 = time.perf_counter()
+    learned = learned_phase(args.requests4)
+    phase("learned", t0)
+    t0 = time.perf_counter()
+    pipe = pipeline_phase()
+    phase("pipeline", t0)
+    t0 = time.perf_counter()
+    expert, gather_rec = expert_cache_phase(args.seed, dev)
+    phase("expert_cache", t0)
+    consumers = {
+        **{f"learned {cm}": line["launches"] for cm, line in learned.items()},
+        "learned heterogeneous live":
+            learned["heterogeneous"]["live"]["launches"],
+        **{f"pipeline {b}": v for b, v in pipe["launches"].items()},
+        **{f"expert_cache {b}": v for b, v in expert["launches"].items()},
+    }
+    t0 = time.perf_counter()
     if args.profile:
         for c, v in configs.items():
             head = v[0].slice(0, min(args.profile, v[0].n_requests))
@@ -1546,6 +2018,12 @@ def main() -> int:
             if line["launches"][counter]:
                 by_config.setdefault(key, {})["launches"] = \
                     line["launches"][counter]
+        for key, counts in consumers.items():
+            if counts[counter]:
+                by_config.setdefault(key, {})["launches"] = counts[counter]
+        if name == "packed_lookup":
+            by_config["expert_cache gather (granite-moe expert rows)"] = \
+                gather_rec
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches, **rec, **extra,

@@ -1,9 +1,9 @@
 """Carry a reference run's data and state into the port, from plain arrays.
 
 Data and state take the place of weights here: a trace, a pricing
-scenario's arrays, the cache state of a replay engine, and a policy's
-window state (the AKPC policy's
-partition and previous-window CRM, the TTL policy's keep-or-not mask).
+scenario's arrays, the cache state of a replay engine, a policy's window
+state (the AKPC policy's partition and previous-window CRM, the TTL
+policy's keep-or-not mask) and a learned policy's trained scorer.
 Every function takes plain numpy arrays (read off ``repro``'s objects by
 the caller), so the port never imports ``repro``.
 """
@@ -88,3 +88,11 @@ def resume_policy(policy, *, clique_of=None, prev_crm: WindowCRM | None = None,
         if keep.shape != (policy.n,):
             raise ValueError(f"keep mask shape {keep.shape} != ({policy.n},)")
         policy._keep = keep
+
+
+def learned_params_from_tree(tree: dict):
+    """A reference ``LearnedParams.tree()`` (its leaves as numpy arrays)
+    as the port's :class:`~repro_torch.learned.model.LearnedParams`."""
+    from .learned.model import LearnedParams
+
+    return LearnedParams.from_tree(tree)

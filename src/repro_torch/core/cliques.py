@@ -102,6 +102,13 @@ class CliquePartition:
             self._sizes = s
         return s
 
+    def non_singletons(self) -> list[tuple[int, ...]]:
+        return [c for c in self.cliques if len(c) > 1]
+
+    def canonical(self) -> list[tuple[int, ...]]:
+        """The cliques of two or more items, sorted."""
+        return sorted(self.non_singletons())
+
     def packed(self) -> np.ndarray:
         """(k, max|c|) int64 member ids, -1 padded, rows in clique order.
 

@@ -3,8 +3,9 @@
 The port's counterpart of ``repro.core.policy``: the paper's method set
 as registered policies, ``akpc`` (plus the ablations ``akpc_no_acm`` and
 ``akpc_base``), ``packcache`` (alias ``packcache2``, online 2-packing),
-``dp_greedy`` (offline 2-packing), ``ttl`` (keep-or-not TTL) and
-``no_packing``.  A policy's ``on_window(items, servers, now)`` is Alg. 1
+``dp_greedy`` (offline 2-packing), ``ttl`` (keep-or-not TTL),
+``no_packing`` and ``learned`` (the trained keep-or-not scorer of
+:mod:`repro_torch.learned`, imported when it is first asked for).  A policy's ``on_window(items, servers, now)`` is Alg. 1
 Event 1 on the host, called at every T_CG boundary with the previous
 window's requests; ``initial_partition(trace)`` is the offline hook.
 
@@ -18,9 +19,6 @@ into the policy.  Every other replay calls it from the host schedule
 policy's mutable state (window counts, size history, the TTL keep mask,
 the AKPC previous-window CRM) under ``repro``'s keys and dtypes, so a
 session snapshot taken in either package restores into the other.
-
-``learned`` is not ported: its scorer lives in the reference's learned
-package, and :func:`get_policy` raises ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -498,12 +496,18 @@ _REGISTRY: dict[str, Callable[..., BasePolicy]] = {
 }
 
 
+def _learned_factory(**kw):
+    # deferred: repro_torch.learned.policy imports this module
+    from ..learned.policy import LearnedPolicy
+
+    return LearnedPolicy(**kw)
+
+
+_REGISTRY["learned"] = _learned_factory
+
+
 def get_policy(name: str, **kwargs) -> BasePolicy:
     """Instantiate a registered policy by name (fresh state every call)."""
-    if name == "learned":
-        raise NotImplementedError(
-            "policy 'learned' is not ported: its scorer comes with the "
-            "learned-policy slice of the port")
     try:
         factory = _REGISTRY[name]
     except KeyError:
@@ -511,6 +515,11 @@ def get_policy(name: str, **kwargs) -> BasePolicy:
             f"unknown policy {name!r}; registered: {sorted(_REGISTRY)}"
         ) from None
     return factory(**kwargs)
+
+
+def list_policies() -> list[str]:
+    """The registered policy names (aliases included), sorted."""
+    return sorted(_REGISTRY)
 
 
 def run_policy(

@@ -1,4 +1,6 @@
-"""Serving on the card: the persistent live engine (port of ``repro.serving``)."""
+"""Serving on the card: the persistent live engine and the MoE expert cache (port of ``repro.serving``)."""
+from .expert_cache import ExpertCacheManager, ExpertCacheStats
 from .live import LiveServingEngine, ServeFuture
 
-__all__ = ["LiveServingEngine", "ServeFuture"]
+__all__ = ["ExpertCacheManager", "ExpertCacheStats", "LiveServingEngine",
+           "ServeFuture"]

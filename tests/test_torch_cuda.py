@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.bench import kernel_bench
+from repro_torch.bench import fig11, kernel_bench
 from repro_torch.bench.kernel_bench import worst_cases
 from repro_torch.core import (
     CacheEnvironment,
@@ -25,6 +25,8 @@ from repro_torch.core import (
     get_policy,
     run_policy,
 )
+from repro_torch.core.replay import run_policy_torch
+from repro_torch.data import PackedDataPipeline, ShardStore
 from repro_torch.kernels import (
     KERNELS,
     clique_pair_edges,
@@ -45,7 +47,10 @@ from repro_torch.kernels import (
     unpacked_lookup_plain,
 )
 from repro_torch.kernels.packed_lookup import CliqueLookup, clique_lookup
-from repro_torch.serving import LiveServingEngine
+from repro_torch.learned import Scorer, TrainConfig, train_policy, warm_params
+from repro_torch.learned.train import adamw_config, train_steps
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.serving import ExpertCacheManager, LiveServingEngine
 from repro_torch.serving import live as live_module
 from repro_torch.traces import SynthConfig, synth_trace
 
@@ -726,3 +731,138 @@ def test_live_ring_buffers_survive_a_slow_stream(cuda_device, config,
         assert slow.ring_waits > 0
     _same_serve_state(fast, slow)
     assert fast.costs.as_dict() == slow.costs.as_dict()
+
+
+# ---------------------------------------------------------------------------
+# the learned policy's trainer and the two cache consumers
+# ---------------------------------------------------------------------------
+#: the trainer's bar, card against CPU: each leaf within this share of its
+#: largest magnitude (tests/test_torch_learned.py's bar against the
+#: reference)
+TRAIN_LEAF_RTOL = 1e-5
+
+
+def _stress(seed, n_requests=2500):
+    return fig11.stress_trace("regime_shift", seed, n_requests)
+
+
+@pytest.mark.parametrize("cost_model", ["table1", "heterogeneous"])
+def test_learned_trainer_on_card_equals_cpu(cuda_device, cost_model):
+    """``train_policy`` on the card against the CPU from the same inputs:
+    every leaf within the bar; the step loop itself makes no host sync
+    (sync debug mode "error" raises on one)."""
+    params = CostParams(rho=4.0)
+    env = fig11.env_for(cost_model, params)
+    tr = _stress(200)
+    t_cg = fig11.t_cg_for(tr, params, env=env, cost_model=cost_model)
+    kw = dict(env=env, t_cg=t_cg, params=params, cost_model=cost_model)
+    card = train_policy(tr, **kw)
+    cpu = train_policy(tr, device="cpu", **kw)
+    for (path, a), (_, b) in zip(tree_leaves(cpu.w), tree_leaves(card.w)):
+        assert np.abs(a - b).max() <= TRAIN_LEAF_RTOL * np.abs(a).max(), path
+    assert np.array_equal(card.mu, cpu.mu) and np.array_equal(card.sd, cpu.sd)
+
+    lp = warm_params(1.0, 1.0, t_cg)
+    X = torch.randn((512, lp.n_features), dtype=torch.float64,
+                    device=cuda_device)
+    y = (torch.rand(512, device=cuda_device) < 0.5).to(torch.float64)
+    idx = torch.randint(0, 512, (20, 64), dtype=torch.int32,
+                        device=cuda_device)
+    scorer = Scorer(lp, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, final = train_steps(scorer, X, y, torch.ones_like(y), idx,
+                                    adamw_config(TrainConfig(steps=20)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(losses).all() and torch.isfinite(final)
+
+
+@pytest.mark.parametrize("cost_model", ["table1", "heterogeneous"])
+def test_learned_serving_on_card_equals_cpu(cuda_device, cost_model):
+    """A trained scorer served through ``run_policy`` on the card: kernel
+    run == plain run bit for bit, and == the CPU run (state bit for bit,
+    costs at 1e-9); under per-server dt one ``seg_scan_step`` a step."""
+    params = CostParams(rho=4.0)
+    env = fig11.env_for(cost_model, params)
+    tr = _stress(200)
+    t_cg = fig11.t_cg_for(tr, params, env=env, cost_model=cost_model)
+    lp = train_policy(tr, env=env, t_cg=t_cg, params=params,
+                      cost_model=cost_model, device="cpu")
+    ev = _stress(101, 20_000)
+
+    def pol():
+        return get_policy("learned", params=params, env=env,
+                          cost_model=cost_model, t_cg=t_cg, learned=lp)
+
+    for fn in KERNELS.values():
+        fn.launches = 0
+    card = run_policy(pol(), ev)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    assert launches["packed_lookup"] > 0
+    want = card.loop_stats["steps"] if cost_model == "heterogeneous" else 0
+    assert launches["seg_scan_step"] == want
+    plain = run_policy_torch(pol(), ev, use_kernels=False)
+    assert {k: fn.launches for k, fn in KERNELS.items()} == launches
+    assert card.costs.as_dict() == plain.costs.as_dict()
+    cpu = run_policy(pol(), ev, device="cpu")
+    for a, b in ((card.state, plain.state), (card.state, cpu.state)):
+        assert np.array_equal(a.E, b.E) and np.array_equal(a.anchor,
+                                                           b.anchor)
+    a, b = card.costs.as_dict(), cpu.costs.as_dict()
+    for key in ("n_requests", "n_item_requests", "n_misses", "n_hits",
+                "items_transferred"):
+        assert a[key] == b[key]
+    for key in ("transfer", "caching", "keepalive_rent", "total"):
+        assert np.isclose(a[key], b[key], rtol=1e-9, atol=0.0)
+
+
+def test_consumers_pipeline_live_on_card_equals_cpu(cuda_device):
+    """``PackedDataPipeline``'s live backend on the card against the CPU:
+    the same batches, costs at 1e-9, state bit for bit."""
+    def run(device):
+        p = PackedDataPipeline(ShardStore(n_shards=64, shard_tokens=256,
+                                          vocab=100), batch_rows=8,
+                               seq_len=32, t_cg=16.0, backend="live",
+                               device=device)
+        out = [next(p) for _ in range(60)]
+        p.cache.drain()
+        return p, out
+
+    (pc, oc), (pg, og) = run("cpu"), run(cuda_device)
+    assert all(np.array_equal(a, b) for a, b in zip(oc, og))
+    a, b = pc.cache.costs.as_dict(), pg.cache.costs.as_dict()
+    for key in ("transfer", "caching", "keepalive_rent", "total"):
+        assert np.isclose(a[key], b[key], rtol=1e-9, atol=0.0)
+    assert a["n_misses"] == b["n_misses"] and a["n_hits"] == b["n_hits"]
+    sa, sb = pc.cache.session.engine.state, pg.cache.session.engine.state
+    assert np.array_equal(sa.E, sb.E)
+
+
+def test_consumers_expert_cache_live_on_card_equals_cpu(cuda_device):
+    """``ExpertCacheManager``'s live backend on the card against the CPU:
+    equal ``stats()``; a card snapshot restores into a CPU session manager
+    that finishes with equal totals."""
+    rng = np.random.default_rng(7)
+    obs = [(rng.integers(0, 16, size=(32, 2)), int(rng.integers(0, 4)))
+           for _ in range(200)]
+
+    def mgr(device, backend="live"):
+        return ExpertCacheManager(n_experts=16, n_hosts=4, t_cg=8.0,
+                                  backend=backend, device=device)
+
+    card, cpu = mgr(cuda_device), mgr("cpu")
+    for topk, host in obs[:100]:
+        card.observe(topk, host=host)
+        cpu.observe(topk, host=host)
+    standby = mgr("cpu", "session")
+    standby.restore(card.snapshot())
+    for m in (card, cpu, standby):
+        for topk, host in obs[100:]:
+            m.observe(topk, host=host)
+    sc, su, ss = card.stats(), cpu.stats(), standby.stats()
+    for other in (su, ss):
+        assert np.isclose(sc.akpc_total, other.akpc_total, rtol=1e-9)
+        assert sc.nopack_total == other.nopack_total
+        assert sc.cliques == other.cliques

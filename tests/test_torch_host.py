@@ -4,8 +4,8 @@
 * schedule: ``build_cgm_schedule``, ``cgm_spec``, ``hot_capacity`` and
   ``cost_spec`` equal the JAX package's host functions;
 * imports: ``repro_torch`` and ``chip_smoke`` load neither jax nor repro;
-* routing: entry points default to CUDA and raise without it; the one
-  policy not ported (``learned``) raises ``NotImplementedError``.
+* routing: entry points default to CUDA and raise without it; ``learned``
+  (once the one policy not ported) takes the host schedule.
 """
 import os
 import pathlib
@@ -227,8 +227,11 @@ def test_default_device_needs_cuda():
 
 @pytest.mark.parametrize("name", ["learned"])
 def test_host_schedule_policies_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="learned-policy slice"):
-        get_policy(name)
+    """``learned`` no longer raises: it replays through the host schedule."""
+    trace = synth_trace(SynthConfig(**TRACE_KW[0]))
+    res = run_policy(get_policy(name, t_cg=0.73), trace, device="cpu")
+    assert res.policy == name
+    assert res.loop_stats["path"] == "host_schedule"
 
 
 def test_uniform_heterogeneous_prices_run_on_device_path():

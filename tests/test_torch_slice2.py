@@ -3,7 +3,8 @@
 ``repro_torch.core.run_policy(policy, trace, device="cpu")`` must leave
 the same final partition, the same ``E``/anchor float for float, the same
 integer counters and costs equal at 1e-9 relative as ``repro``'s numpy
-replay, for every registered policy but ``learned``, under table1, tiered
+replay, for every registered policy but ``learned`` (held in
+``tests/test_torch_learned.py``), under table1, tiered
 and heterogeneous pricing (per-server dt), at fixed and event-balanced
 batches.  Also: the install step on tied rows, routing, and a replay
 that the numpy engine stops halfway and the port finishes.
@@ -155,8 +156,9 @@ def test_akpc_host_path_at_uniform_dt(traces, name, cost_model):
 
 
 def test_learned_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="learned-policy slice"):
-        get_policy("learned")
+    """``learned`` is registered now (it raised before it was ported);
+    an unknown name still raises."""
+    assert get_policy("learned").name == "learned"
     with pytest.raises(KeyError, match="unknown policy"):
         get_policy("lfu")
     assert get_policy("packcache2").name == get_policy("packcache").name

@@ -10,7 +10,8 @@ axes, device-CGM super-group points, and trace shards.  Below the engine:
 the scans' lane form equals the per-lane scans and ``jax.vmap`` of the
 reference's jnp twins, a laned ``run_schedule`` equals one unlaned run
 per lane, and cohort padding changes nothing.  The refusals (backend,
-mesh, layout, cost model, ``learned``) raise.
+mesh, layout, cost model) raise; a ``learned`` point sweeps like its
+serial run.
 """
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,7 @@ from repro_torch.core import (
     SweepPoint,
     get_cost_model,
     get_policy,
+    run_policy,
     sweep_points,
 )
 from repro_torch.core.cost import CostModel, register_cost_model
@@ -306,9 +308,12 @@ def test_refusals(unit_traces):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 1, item 3"):
             SweepEngine(layout=layout, device="cpu")
-    with pytest.raises(NotImplementedError, match="learned"):
-        SweepEngine(device="cpu").run([SweepPoint(
-            "learned", pt, dict(params=CostParams(), t_cg=T_CG))])
+    # ``learned`` was refused before it was ported; it now sweeps like a
+    # serial run (its warm start: the TTL baseline's decisions)
+    kw = dict(params=CostParams(), t_cg=T_CG)
+    (res,) = SweepEngine(device="cpu").run([SweepPoint("learned", pt, kw)])
+    want = run_policy(get_policy("learned", **kw), pt, device="cpu")
+    assert res.costs.as_dict() == want.costs.as_dict()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             SweepEngine()
