@@ -57,6 +57,22 @@
    no_packing / packcache / akpc, heterogeneous prices, 150 servers) at
    1M requests as one sweep: per-server dt, so the lane-batched scans
    launch; every point against a serial card run;
+8b. ``sweep_fig7``: fig7's grid (6 thetas, 6 gammas, 5 omegas; ``akpc``
+   and ``akpc_base``) over ``netflix-table2`` and the Table-II
+   ``spotify`` trace at ``--requests`` as one sweep: 4 device-CGM
+   super-groups of 17 lanes, each one laned device clique generation (one
+   schedule a group, no host clique generation, ``crm_update`` once a
+   window a group, ``clique_pair_edges`` and ``merge_density`` once a
+   window an ``akpc`` group, no scan or lookup); the first and last lane
+   of each group against serial card runs, the netflix ``akpc`` group on
+   a 20,000-request head against serial CPU runs and a 3-lane
+   ``catalog-10k`` theta group (top_frac 0.1: h 1024) on a 200,000-request
+   head against serial card runs (state, costs at 1e-9, windows and size
+   history); then the laned kernels against their laned plain versions,
+   bitwise and twice, on the inputs captured from these runs and on
+   ``kernel_bench.lane_cases`` (1, 2, 17 and 3 lanes with their own hot
+   counts, omega, gamma and act counts), timed on the card alone beside a
+   per-lane loop of the unlaned kernel;
 9. holds the scan and gather kernels (and the CGM kernels at the host
    clique generation's shapes) against their plain versions on inputs
    captured from those replays (the scans also in the sweep's lane form;
@@ -132,7 +148,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.bench import fig11, kernel_bench  # noqa: E402
+from repro_torch.bench import fig7, fig11, kernel_bench  # noqa: E402
 from repro_torch.bench.common import (  # noqa: E402
     PEAK_FP32,
     PEAK_TF32,
@@ -155,10 +171,12 @@ from repro_torch.core import (  # noqa: E402
     CacheState,
     CostParams,
     SweepEngine,
+    SweepPoint,
     get_cost_model,
     get_policy,
     run_policy,
 )
+from repro_torch.core import cliques as port_cliques  # noqa: E402
 from repro_torch.core.cgm_schedule import (  # noqa: E402
     build_cgm_schedule,
     policy_hot_dims,
@@ -168,6 +186,9 @@ from repro_torch.core.replay import (  # noqa: E402
     run_policy_torch,
     run_schedule,
     state_to_device,
+)
+from repro_torch.kernels.merge_step import (  # noqa: E402
+    merge_density_lanes_plain,
 )
 from repro_torch.kernels import (  # noqa: E402
     KERNELS,
@@ -260,6 +281,14 @@ SERVE_HEAD, SERVE_CUT = 200_000, 2 * 65_536 + 77
 SYNC_KINDS = {"gather": "lookup", "crm_matmul": "host_cgm",
               "pair_edges": "host_cgm", "_sync_costs": "costs",
               "_sync_state": "state"}
+
+
+#: the fig7 phase: the CPU head of the 17-lane netflix akpc group, and a
+#: 3-lane theta group on catalog-10k (top_frac 0.1: the hot space h 1024)
+#: over a head of its trace, each lane against a serial card run
+FIG7_CPU_HEAD = 20_000
+FIG7_CATALOG_THETAS, FIG7_CATALOG_TOP_FRAC = (0.15, 0.2, 0.3), 0.1
+FIG7_CATALOG_HEAD = 200_000
 
 
 #: the learned phase: fig11's regime-shift stress trace, trained on the
@@ -1223,6 +1252,227 @@ class SyncCounter:
         return False
 
 
+def lane_bound(name: str, args: tuple) -> dict:
+    """The bound of a laned CGM kernel at these inputs: every lane's bytes
+    and operations, as :func:`pair_bound` and ``merge_bound`` count one
+    lane's, summed."""
+    if name == "merge_density":
+        X, sizes, om, gm, acts, _ = args
+        ks = None if acts is None else acts.tolist()
+        recs = [kernel_bench.merge_bound(
+            sizes[lane], int(om[lane]), None if ks is None else ks[lane])
+            for lane in range(X.shape[0])]
+        return bound(sum(r["ops"] for r in recs), PEAK_FP32,
+                     sum(r["bytes"] for r in recs))
+    recs = [pair_bound(name, tuple(a[lane] for a in args))
+            for lane in range(args[0].shape[0])]
+    return bound(sum(r["ops"] for r in recs), PEAK_TF32,
+                 sum(r["bytes"] for r in recs))
+
+
+def lane_calls(name: str, args: tuple):
+    """(kernel, plain version, per-lane loop of the unlaned kernel, library
+    call) of one laned CGM kernel's inputs."""
+    L = args[0].shape[0]
+    if name == "crm_update":
+        (H,) = args
+        return (lambda: crm_update(H), lambda: crm_update_plain(H),
+                lambda: [crm_update(H[lane]) for lane in range(L)],
+                lambda: torch.bmm(H.transpose(1, 2), H))
+    if name == "clique_pair_edges":
+        M, A = args
+        return (lambda: clique_pair_edges(M, A),
+                lambda: clique_pair_edges_plain(M, A),
+                lambda: [clique_pair_edges(M[lane], A[lane])
+                         for lane in range(L)],
+                lambda: torch.bmm(torch.bmm(M, A), M.transpose(1, 2)))
+    X, sizes, om, gm, acts, act_max = args
+    oms, gms = om.tolist(), gm.tolist()
+    ks = [None] * L if acts is None else acts.tolist()
+    return (lambda: merge_density(X, sizes, om, gm, n_act=acts,
+                                  act_max=act_max),
+            lambda: merge_density_lanes_plain(X, sizes, om, gm, acts),
+            lambda: [merge_density(X[lane], sizes[lane], oms[lane],
+                                   gms[lane], ks[lane])
+                     for lane in range(L)],
+            None)
+
+
+def lane_kernel_phase(report: list, captured: dict) -> dict:
+    """The laned CGM kernels against their laned plain versions, bitwise
+    and twice, on the laned inputs captured from the fig7 runs and on
+    ``kernel_bench.lane_cases``; each timed on the card alone beside a
+    per-lane loop of the unlaned kernel (the yardstick) and its bound."""
+    cases = [(name, f"ragged {label}", args) for name, label, args
+             in kernel_bench.lane_cases(torch.device("cuda"))]
+    for run, cap in captured.items():
+        (H,) = cap["crm_update_lanes"][1]
+        cases.append(("crm_update", f"captured {run}", (H,)))
+        if "clique_pair_edges_lanes" in cap:
+            cases.append(("clique_pair_edges", f"captured {run}",
+                          cap["clique_pair_edges_lanes"][1]))
+            cases.append(("merge_density", f"captured {run}",
+                          cap["merge_density_lanes"][1]))
+    records: dict = {}
+    for name, label, args in cases:
+        kern, plain, loop, lib = lane_calls(name, args)
+        err = held_equal(report, name, f"laned {label}", kern, plain)
+        if not label.startswith("captured") and args[0].shape[0] != 17:
+            continue
+        records.setdefault(name, {})[label] = {
+            "shape": [list(a.shape) for a in args
+                      if isinstance(a, torch.Tensor)],
+            "lanes": int(args[0].shape[0]), "max_abs_err": err,
+            "ms": cuda_time(kern, REPS), "plain_ms": cuda_time(plain, REPS),
+            "library_ms": cuda_time(lib, REPS) if lib else None,
+            **kernel_bench.device_times(kern, lib, REPS),
+            "lane_loop_device_ms": cuda_graph_time(loop, REPS),
+            **lane_bound(name, args)}
+    return records
+
+
+def fig7_groups(pts) -> dict:
+    """Point indices of each (trace, method) super-group of fig7's grid."""
+    groups: dict = {}
+    for i, p in enumerate(pts):
+        groups.setdefault((id(p.trace), p.policy), []).append(i)
+    return groups
+
+
+def same_lane(a, b, tag) -> None:
+    """A laned point against its serial run: state, costs at 1e-9,
+    windows and size history."""
+    same_point(a, b, tag)
+    same_costs(a, b, tag)
+    if a.n_windows != b.n_windows or len(a.size_history) != len(
+            b.size_history) or not all(np.array_equal(x, y) for x, y in zip(
+                a.size_history, b.size_history)):
+        raise AssertionError(f"{tag}: windows or size history differ")
+
+
+def sweep_fig7_phase(traces: dict, catalog) -> tuple[dict, dict]:
+    """fig7's grid (both Table-II traces, theta / gamma / omega, akpc and
+    akpc_base) as one sweep on the card: 4 device-CGM super-groups, each
+    one laned clique generation.  The first and last lane of each group
+    against serial card runs, the netflix akpc group on a head against
+    serial CPU runs, and a 3-lane catalog-10k theta group (h 1024) on a
+    head against serial card runs.  Returns the ``sweep_fig7`` record and
+    the laned kernels' records."""
+    pts, _ = fig7.grid_points(traces)
+    groups = fig7_groups(pts)
+    captured: dict = {}
+    reset_launches()
+    capture.INPUTS = {}
+    calls0 = port_cliques.CGM_CALLS
+    torch.cuda.synchronize()
+    eng = SweepEngine()
+    swept = eng.run(pts)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    captured["fig7 grid"] = dict(capture.INPUTS)
+    capture.INPUTS = None
+    recs = eng.last_stats["cgm_groups"]
+    if port_cliques.CGM_CALLS != calls0:
+        raise AssertionError("sweep fig7 made host clique-generation calls")
+    if (eng.last_n_schedules != len(groups) or len(recs) != len(groups)
+            or [r["lanes"] for r in recs] != [len(v) for v in
+                                              groups.values()]):
+        raise AssertionError(
+            f"sweep fig7: {eng.last_n_schedules} schedules, lanes "
+            f"{[r['lanes'] for r in recs]}, not {len(groups)} groups of "
+            f"{[len(v) for v in groups.values()]}")
+    windows = sum(r["windows"] for r in recs)
+    merge_windows = sum(r["windows"] for (_, pol), r in zip(groups, recs)
+                        if pol == "akpc")
+    want = {"crm_update": windows, "clique_pair_edges": merge_windows,
+            "merge_density": merge_windows}
+    for k, n_l in want.items():
+        if launches[k] != n_l:
+            raise AssertionError(f"sweep fig7: {launches[k]} {k} launches "
+                                 f"for {n_l} super-group windows")
+    if any(launches[k] for k in (*SEG_KERNELS, STEP, "packed_lookup",
+                                 "unpacked_lookup")):
+        raise AssertionError("sweep fig7: a scan or lookup kernel launched")
+    for p, r in zip(pts, swept):
+        if not (np.isfinite(r.total) and r.total > 0.0
+                and r.costs.n_requests == p.trace.n_requests
+                and r.n_windows >= 2):
+            raise AssertionError(f"sweep fig7 {p.policy}: total {r.total}")
+
+    idx = [i for v in groups.values() for i in (v[0], v[-1])]
+    ser = SweepEngine(backend="serial")
+    serial = ser.run([pts[i] for i in idx])
+    for i, r in zip(idx, serial):
+        same_lane(swept[i], r, f"fig7 point {i}")
+
+    head = traces["netflix"].slice(0, FIG7_CPU_HEAD)
+    pts_h = [p for p in fig7.grid_points({"netflix": head})[0]
+             if p.policy == "akpc"]
+    eng_h = SweepEngine()
+    swept_h = eng_h.run(pts_h)
+    ser_cpu = SweepEngine(backend="serial", device="cpu")
+    for k, (a, b) in enumerate(zip(swept_h, ser_cpu.run(pts_h))):
+        same_lane(a, b, f"fig7 CPU head point {k}")
+
+    cat = catalog.slice(0, min(FIG7_CATALOG_HEAD, catalog.n_requests))
+    t_cat = t_cg_for(cat)
+    pts_c = [SweepPoint("akpc", cat, dict(
+        params=CostParams(theta=th), t_cg=t_cat,
+        top_frac=FIG7_CATALOG_TOP_FRAC)) for th in FIG7_CATALOG_THETAS]
+    capture.INPUTS = {}
+    eng_c = SweepEngine()
+    swept_c = eng_c.run(pts_c)
+    captured["catalog-10k theta group"] = dict(capture.INPUTS)
+    capture.INPUTS = None
+    ser_c = SweepEngine(backend="serial")
+    for k, (a, b) in enumerate(zip(swept_c, ser_c.run(pts_c))):
+        same_lane(a, b, f"fig7 catalog-10k point {k}")
+    (rec_c,) = eng_c.last_stats["cgm_groups"]
+
+    def per_window(rec, prefix):
+        return {k: rec[k] / rec["windows"] for k in rec
+                if k.startswith(prefix)}
+
+    line = {
+        "configs": {k: [tr.n, tr.m, tr.n_requests] for k, tr in
+                    traces.items()},
+        "points": len(pts), "schedules": eng.last_n_schedules,
+        "groups": [{"policy": pol, "lanes": r["lanes"],
+                    "windows": r["windows"], "h": r["h"], "gcap": r["gcap"],
+                    "full_merge": r["full_merge"], "seconds": r["seconds"],
+                    "seconds_per_point": r["seconds"] / r["lanes"],
+                    "syncs": {k: r[k] for k in r if k.startswith("sync_")},
+                    "syncs_per_window": per_window(r, "sync_"),
+                    "iterations": {k: r.get(k, 0) for k in (
+                        "iters_removed", "iters_added", "split_iters",
+                        "merge_iters")},
+                    "edges_removed": r.get("edges_removed", 0),
+                    "edges_added": r.get("edges_added", 0),
+                    "merges": r.get("merges", 0)}
+                   for (_, pol), r in zip(groups, recs)],
+        "sweep_wall_s": eng.last_wall,
+        "sweep_per_point_s": eng.last_wall / len(pts),
+        "serial_points": len(idx), "serial_wall_s": ser.last_wall,
+        "serial_per_point_s": ser.last_wall / len(idx),
+        "serial_walls_s": [r.wall_seconds for r in serial],
+        "launches": launches, "host_cgm_calls": 0,
+        "cpu_head_requests": head.n_requests, "cpu_head_lanes": len(pts_h),
+        "cpu_head_sweep_s": eng_h.last_wall,
+        "cpu_serial_per_point_s": ser_cpu.last_wall / len(pts_h),
+        "catalog": {"requests": cat.n_requests, "lanes": len(pts_c),
+                    "h": rec_c["h"], "windows": rec_c["windows"],
+                    "sweep_s": eng_c.last_wall,
+                    "serial_per_point_s": ser_c.last_wall / len(pts_c),
+                    "sweep_per_point_s": eng_c.last_wall / len(pts_c),
+                    "syncs_per_window": per_window(rec_c, "sync_")},
+    }
+    print("sweep_fig7 " + json.dumps(line), flush=True)
+    report: list = []
+    lane_recs = lane_kernel_phase(report, captured)
+    print("kernels_lanes " + json.dumps(report), flush=True)
+    print("kernels_lanes_timed " + json.dumps(lane_recs), flush=True)
+    return line, lane_recs
+
+
 def submit_slices(eng, trace, lo: int, hi: int) -> None:
     """Submit [lo, hi) of the trace in ``SERVE_SLICE`` arrival slices;
     fails if the ring ever holds more than ``ring`` chunks."""
@@ -1891,6 +2141,13 @@ def main() -> int:
     t0 = time.perf_counter()
     fig10, captured["sweep-fig10"] = sweep_fig10_phase(args.requests3)
     phase("sweep_fig10", t0)
+    t0 = time.perf_counter()
+    fig7_traces = {"netflix": configs["netflix-table2"][0],
+                   "spotify": paper_trace("spotify", args.requests,
+                                          args.seed)}
+    fig7_line, lane_recs = sweep_fig7_phase(fig7_traces,
+                                            configs["catalog-10k"][0])
+    phase("sweep_fig7", t0)
 
     t0 = time.perf_counter()
     records2 = kernel_phase2(captured, args.seed, dev)
@@ -1972,6 +2229,10 @@ def main() -> int:
                 by_config[f"worst {label}"] = rec2
             if name == "merge_density":
                 by_config.update(merges)
+            for label, rec2 in lane_recs.get(name, {}).items():
+                by_config[f"sweep_fig7 laned {label}"] = {
+                    **rec2, **({"launches": fig7_line["launches"][name]}
+                               if label == "captured fig7 grid" else {})}
         elif name == "unpacked_lookup":
             brecs = [r for r in bench_recs if r["name"] == name]
             rec = dict(brecs[-1])

@@ -58,6 +58,13 @@ one, 5 KB + 4 byte rows, a table and ids at an unaligned offset) at R 1, 3, 64 a
 float32 and float16; :func:`check_lookup_case` holds both lookups on one
 against their plain versions.
 
+:func:`lane_cases` builds laned inputs of the three CGM kernels (1, 2,
+17 and 3 lanes, each lane with its own hot count, omega, gamma and act
+count) and :func:`wide_row_cases` rows longer than one slice of the
+``sliced`` lookup (23.6 MB, and 16 bytes either side of 6 MB);
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels on
+them.
+
 :func:`worst_cases` builds the inputs that the sparse designs of
 ``crm_update`` and ``clique_pair_edges`` could get wrong (dense and empty
 rows, strided views, ragged row counts, memberships with slots in several
@@ -250,6 +257,84 @@ def check_lookup_case(case: dict) -> list[dict]:
             raise AssertionError(f"{name} ({path}) differs from its plain "
                                  f"version at {case['label']}")
     return report
+
+
+#: laned CGM kernel cases: (lanes, hot capacity h, merge slots): one lane,
+#: two, a fig7 super-group's 17, and catalog-10k's hot space at 3 lanes
+LANE_SHAPES = ((1, 64, 128), (2, 64, 128), (17, 64, 128), (3, 1024, 2048))
+#: the window rows of a laned ``crm_update`` case
+LANE_ROWS = 4097
+#: wide rows for the ``sliced`` path: the expert cache's clique row (omega
+#: 5 experts of 3 x 1536 x 512 float16, 23.6 MB) and rows a 16-byte unit
+#: below and above one 6 MB slice, with the ids of each case (a repeat)
+WIDE_ROWS = (("2 rows of 23.6 MB", 5 * 3 * 1536 * 512 * 2, 4, (2, 0)),
+             ("3 rows of 23.6 MB, one repeated", 5 * 3 * 1536 * 512 * 2, 4,
+              (1, 3, 1)),
+             ("rows of 6 MB less 16 bytes", (6 << 20) - 16, 5, (4, 0, 4)),
+             ("rows of 6 MB and 16 bytes", (6 << 20) + 16, 5, (3, 3, 1)))
+
+
+def lane_cases(device, seed: int = 0) -> list[tuple[str, str, tuple]]:
+    """(kernel, label, arguments) of the laned ``crm_update``,
+    ``clique_pair_edges`` and ``merge_density`` at :data:`LANE_SHAPES` on
+    ``device``: each lane with its own count of hot slots (the rest of its
+    columns empty, as a lane with a smaller top_frac has them), its own
+    groups, omega, gamma and act count (0, 1, all, and between), H a
+    strided view of a (h + 1)-wide buffer.  ``merge_density``'s arguments
+    are (X, sizes, omega, gamma32, n_act, act_max)."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    omegas, gammas = (2, 3, 5, 7, 10), (0.6, 0.85, 0.9, 1.0, 0.0)
+    cases = []
+    for L, h, Sp in LANE_SHAPES:
+        hot = [h] + [int(rng.integers(1, h + 1)) for _ in range(L - 1)]
+        H = np.zeros((L, LANE_ROWS, h + 1), np.float32)
+        M = np.zeros((L, Sp, h), np.float32)
+        A = np.zeros((L, h, h), np.float32)
+        for lane, k in enumerate(hot):
+            inc = _incidence(rng, LANE_ROWS, k)
+            H[lane, :, :k] = inc[:, :k]
+            groups = int(rng.integers(1, min(k, Sp) + 1))
+            grp = rng.integers(0, groups, size=k)
+            M[lane, grp, np.arange(k)] = 1.0
+            A[lane, :k, :k] = _binary(rng, k, 0.5)
+        Ht = torch.from_numpy(H).to(dev)
+        label = f"L {L}, h {h}, hot {min(hot)}-{max(hot)}"
+        cases.append(("crm_update", f"{label}, rows {LANE_ROWS}, strided",
+                      (Ht[:, :, :h],)))
+        Mt, At = torch.from_numpy(M).to(dev), torch.from_numpy(A).to(dev)
+        cases.append(("clique_pair_edges", f"{label}, S {Sp}", (Mt, At)))
+        X = kernels.clique_pair_edges_plain(Mt, At)
+        sizes = M.sum(2).astype(np.int32)
+        om = torch.tensor([omegas[i % 5] for i in range(L)],
+                          dtype=torch.int32, device=dev)
+        gm = torch.tensor([np.float32(gammas[i % 5]) for i in range(L)],
+                          dtype=torch.float32, device=dev)
+        acts = [[0, 1, Sp, Sp // 3, 7][i % 5] for i in range(L)]
+        if L == 1:
+            acts = [int((sizes[0] > 0).sum())]
+        st = torch.from_numpy(sizes).to(dev)
+        cases.append(("merge_density", f"{label}, S {Sp}, unmasked",
+                      (X, st, om, gm, None, None)))
+        cases.append(("merge_density", f"{label}, S {Sp}, n_act {acts}",
+                      (X, st, om, gm, torch.tensor(acts, device=dev),
+                       max(acts))))
+    return cases
+
+
+def wide_row_cases(device, seed: int = 0):
+    """(label, table, ids) of :data:`WIDE_ROWS` on ``device``: float16
+    tables of that many rows (every path ``sliced``: 16-byte-multiple rows,
+    more than one slice of table)."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    for label, row_bytes, C, ids in WIDE_ROWS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(rng.integers(1 << 30)))
+        table = torch.randn((C, row_bytes // 2), generator=g, device=dev,
+                            dtype=torch.float32).to(torch.float16)
+        yield label, table.view(C, 1, row_bytes // 2), torch.tensor(
+            ids, dtype=torch.int32, device=dev)
 
 
 def scan_step_inputs(rng, S: int, L: int, starts, m: int, device) -> tuple:

@@ -24,16 +24,18 @@ Backends: ``"torch"`` (default) is that lane-stacked replay on ``device``
 point on the same device (the reference's ``"numpy"``): the baseline a
 sweep is timed against.
 
-What this port runs differently from the reference, each point still
-giving its serial result:
+Device-CGM super-groups (AKPC points of one trace and pricing that differ
+only in theta / gamma / omega / top_frac, the fig7 axes) share ONE
+partition-free CGM schedule and replay as the lanes of one laned device
+clique generation (:func:`~repro_torch.core.cgm_lanes.run_cgm_lanes`, the
+reference's vmapped ``run_cgm_schedule``): zero host clique-generation
+calls, one schedule a super-group.
 
-* the device-CGM super-groups (AKPC points that differ only in
-  theta / gamma / omega / top_frac, vmapped clique generation in the
-  reference) run one point at a time through the device clique
-  generation (``replay_cgm``);
-* a trace-shard point replays each shard as a scenario group of its own
-  (one schedule per shard), merged by :func:`_merge_shard_results`; the
-  reference stacks the shards as lanes of one call.
+What this port runs differently from the reference, each point still
+giving its serial result: a trace-shard point replays each shard as a
+scenario group of its own (one schedule per shard), merged by
+:func:`_merge_shard_results`; the reference stacks the shards as lanes of
+one call.
 
 The mesh and the ``bucketed`` / ``row_sharded`` layouts are refused
 (ROADMAP queue 1, item 3), and so is a cost model without a device
@@ -169,6 +171,10 @@ class SweepEngine:
         self.last_n_schedules = 0
         #: the most recent run's schedule builds and laned scans (seconds)
         self.last_stats: dict = {}
+        #: per point of the most recent run: the (windows, n) slot maps at
+        #: its T_CG boundaries if it ran in a device-CGM super-group, else
+        #: None
+        self.last_cgm_ofs: list = []
 
     # ------------------------------------------------------------------
     def run(self, points: Sequence[SweepPoint]) -> list[RunResult]:
@@ -225,11 +231,10 @@ class SweepEngine:
                 "env": env, "bs": bs, "seed": seed, "shards": shards,
                 "charge": getattr(policy, "caching_charge", "requested")}
 
-    def _device_cgm_points(self, prepared) -> set:
-        """The points the reference replays in device-CGM super-groups:
-        AKPC points of one trace and pricing that the device clique
-        generation admits and that differ in at least two CGM keys.  The
-        port replays each through ``replay_cgm``."""
+    def _device_cgm_groups(self, prepared) -> list:
+        """The reference's device-CGM super-groups, as lists of point
+        indices: AKPC points of one trace and pricing that the device
+        clique generation admits, with at least two distinct CGM keys."""
         from .cgm_schedule import wants_device_cgm
 
         groups: dict = {}
@@ -245,7 +250,7 @@ class SweepEngine:
                     pr["charge"], pr["model"].uses_sizes, pr["sizes_fp"],
                     pr["seed"], cfg.enable_split, cfg.enable_approx_merge)
             groups.setdefault(dkey, []).append(i)
-        out = set()
+        out = []
         for idxs in groups.values():
             # grouping before the admission test gives the reference's
             # groups (the test only drops points), and spares a group
@@ -256,8 +261,73 @@ class SweepEngine:
                 prepared[i]["policy"], prepared[i]["pt"].trace,
                 prepared[i]["model"])]
             if len({_cgm_key(prepared[i]["policy"]) for i in ok}) >= 2:
-                out.update(ok)
+                out.append(ok)
         return out
+
+    def _replay_cgm_group(self, lanes: list) -> tuple[list, np.ndarray]:
+        """One super-group (prepared points) as the lanes of one laned
+        device clique generation, from singletons: one RunResult a lane,
+        as the serial ``replay_cgm`` of its point returns it, and the (S,
+        windows, n) slot maps at the boundaries."""
+        from .cgm_lanes import init_lane_carry, run_cgm_lanes, stack_cspecs
+        from .cgm_schedule import (
+            build_cgm_schedule, cgm_spec, partition_from_of, policy_hot_dims)
+        from .engine import CacheState
+        from .replay import apply_acc
+
+        g0 = lanes[0]
+        trace = g0["pt"].trace
+        n, m = trace.n, trace.m
+        cfg0 = g0["policy"].config
+        uses_sizes = bool(g0["model"].uses_sizes)
+        item_sizes = g0["env"].sizes() if uses_sizes else None
+        S = len(lanes)
+        t0 = _time.perf_counter()
+        sched = build_cgm_schedule(
+            trace, cfg0.t_cg, uses_sizes=uses_sizes, batch_size=g0["bs"],
+            hot_dims=[policy_hot_dims(pr["policy"])[0] for pr in lanes])
+        spec = {k: np.stack([np.asarray(pr["spec"][k]) for pr in lanes])
+                for k in g0["spec"]}
+        cspec = stack_cspecs([cgm_spec(pr["policy"].config,
+                                       pr["policy"].config.params, n)
+                              for pr in lanes])
+        carry0 = init_lane_carry(
+            CacheState.fresh(CliquePartition.singletons(n), m), S,
+            schedule=sched, uses_sizes=uses_sizes, item_sizes=item_sizes,
+            device=self.device)
+        final, ofs, stats = run_cgm_lanes(
+            sched, spec, g0["statics"], cspec, carry0, item_sizes,
+            charge=g0["charge"], enable_split=cfg0.enable_split,
+            enable_acm=cfg0.enable_approx_merge, seed_new=g0["seed"])
+        host = {k: final[k].cpu().numpy()
+                for k in ("E", "anchor", "of", "acc")}
+        ofs = ofs.cpu().numpy()
+        wall = _time.perf_counter() - t0
+        nbd = int(sched.boundary_steps.size)
+        self.last_stats["cgm_groups"].append(
+            {"lanes": S, "windows": nbd, "steps": sched.nb, "h": sched.h,
+             "seconds": wall, **stats})
+        out = []
+        for lane, pr in enumerate(lanes):
+            costs = CostBreakdown(model=pr["statics"][0])
+            apply_acc(costs, sched, host["acc"][lane])
+            part = (partition_from_of(n, host["of"][lane]) if nbd
+                    else CliquePartition.singletons(n))
+            hist = []
+            for w in range(nbd):
+                sz = np.bincount(ofs[lane, w]).astype(np.int64)
+                hist.append(sz[sz > 1])
+            out.append(RunResult(
+                policy=pr["policy"].name, costs=costs,
+                clique_sizes=part.sizes(), size_history=hist, n_windows=nbd,
+                cg_seconds=0.0, wall_seconds=wall / S,
+                config=pr["policy"].config,
+                state=CacheState(
+                    partition=part, E=host["E"][lane][: part.k].copy(),
+                    anchor=host["anchor"][lane][: part.k].astype(np.int32),
+                    m=m),
+                loop_stats={"path": "sweep_cgm_lanes", **stats}))
+        return out, ofs
 
     def _build(self, policy, trace, pr) -> dict:
         """One host schedule (clique generation on the host, lookups and
@@ -314,9 +384,11 @@ class SweepEngine:
     def _run_lanes(self, points) -> list[RunResult]:
         from .schedule import pad_schedule, schedule_dims
 
-        self.last_stats = {"groups": [], "builds": []}
+        self.last_stats = {"groups": [], "builds": [], "cgm_groups": []}
+        self.last_cgm_ofs = [None] * len(points)
         prepared = [self._prepare(pt) for pt in points]
-        on_device = self._device_cgm_points(prepared)
+        cgm_groups = self._device_cgm_groups(prepared)
+        on_device = {i for idxs in cgm_groups for i in idxs}
         groups: dict = {}
         sh_groups: dict = {}
         for i, pr in enumerate(prepared):
@@ -373,12 +445,14 @@ class SweepEngine:
                 results[i] = _merge_shard_results(
                     [subs[lane] for subs in per_shard])
 
-        # -- device-CGM points: the device clique generation, one by one ----
-        for i in sorted(on_device):
-            pt = prepared[i]["pt"]
-            results[i] = self._run_policy(pt, pt.trace)
+        # -- device-CGM super-groups: one laned clique generation each -----
+        for idxs in cgm_groups:
+            res, ofs = self._replay_cgm_group([prepared[i] for i in idxs])
+            for lane, (i, r) in enumerate(zip(idxs, res)):
+                results[i] = r
+                self.last_cgm_ofs[i] = ofs[lane]
         self.last_n_schedules = (len(schedules) + n_shard_schedules
-                                 + len(on_device))
+                                 + len(cgm_groups))
         self.last_stats.update(schedules=len(schedules),
                                shard_schedules=n_shard_schedules,
                                device_cgm_points=len(on_device))

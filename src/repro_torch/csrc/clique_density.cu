@@ -1,7 +1,9 @@
 // All-pairs clique union edge counts X = M A M^T (paper Alg. 3 merge scan):
 // M the (S, h) 0/1 clique membership over the hot slots, A the (h, h) 0/1
 // binary CRM.  Off the diagonal X[i, j] counts cross edges between groups i
-// and j; on it, X[i, i] is twice the within-group count.
+// and j; on it, X[i, i] is twice the within-group count.  A laned call
+// takes S sweep lanes' (M, A) pairs in one launch of each pass, the lane
+// on the grid's y.
 //
 // Replaces the TPU kernel repro/kernels/clique_density.py::clique_pair_edges
 // (Pallas body _density_kernel): one grid step per row block of M, with
@@ -50,6 +52,9 @@ constexpr unsigned kAll = 0xffffffffu;
 __global__ void __launch_bounds__(kThreads)
 list_kernel(const float* __restrict__ M, int* __restrict__ cols,
             int* __restrict__ count, int S, int h) {
+  M += static_cast<size_t>(blockIdx.y) * S * h;
+  cols += static_cast<size_t>(blockIdx.y) * S * h;
+  count += static_cast<size_t>(blockIdx.y) * S;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -83,6 +88,10 @@ pair_kernel(const float* __restrict__ A, const int* __restrict__ cols,
             const int* __restrict__ count, float* __restrict__ X, int S,
             int h) {
   extern __shared__ float P[];
+  A += static_cast<size_t>(blockIdx.y) * h * h;
+  cols += static_cast<size_t>(blockIdx.y) * S * h;
+  count += static_cast<size_t>(blockIdx.y) * S;
+  X += static_cast<size_t>(blockIdx.y) * S * S;
   int* lcol = reinterpret_cast<int*>(P + h);
   const int i = blockIdx.x;
   const int zi = count[i];
@@ -133,20 +142,25 @@ pair_kernel(const float* __restrict__ A, const int* __restrict__ cols,
 
 }  // namespace
 
-// M: (S, h) float32, A: (h, h) float32, X: (S, S) float32, all contiguous;
-// scratch: cols (h S) int32, count (S,) int32.  A block takes 4 h + 1 KB
-// of shared memory: at most 24 KB under the caller's exactness bound
+// M: lanes x (S, h) float32, A: lanes x (h, h) float32, X: lanes x (S, S)
+// float32, all contiguous; scratch: cols (lanes h S) int32, count (lanes
+// S) int32.  The lane is the grid's y in both passes.  A block takes 4 h +
+// 1 KB of shared memory: at most 24 KB under the caller's exactness bound
 // (h <= 5793), within the 48 KB it has by default.
-extern "C" int clique_pair_edges_launch(const float* M, const float* A,
-                                        float* X, int* cols, int* count,
-                                        int S, int h, cudaStream_t stream) {
-  if (S <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = min((S + kWarps - 1) / kWarps, 8 * kSMs);
-  list_kernel<<<blocks, kThreads, 0, stream>>>(M, cols, count, S, h);
+extern "C" int clique_pair_edges_lanes_launch(const float* M, const float* A,
+                                              float* X, int* cols, int* count,
+                                              int lanes, int S, int h,
+                                              cudaStream_t stream) {
+  if (S <= 0 || lanes <= 0) return static_cast<int>(cudaGetLastError());
+  const int most = max(1, 8 * kSMs / lanes);      // list blocks a lane
+  const int blocks = min((S + kWarps - 1) / kWarps, most);
+  list_kernel<<<dim3(blocks, lanes), kThreads, 0, stream>>>(M, cols, count,
+                                                            S, h);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = (h + kThreads) * sizeof(int);
-  pair_kernel<<<S, kThreads, smem, stream>>>(A, cols, count, X, S, h);
+  pair_kernel<<<dim3(S, lanes), kThreads, smem, stream>>>(A, cols, count, X,
+                                                          S, h);
   return static_cast<int>(cudaGetLastError());
 }
 

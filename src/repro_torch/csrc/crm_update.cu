@@ -1,5 +1,7 @@
 // Window co-occurrence counts of the CRM (paper Alg. 2): out = H^T H with a
-// zero diagonal, H the (rows, h) 0/1 request x hot-item incidence.
+// zero diagonal, H the (rows, h) 0/1 request x hot-item incidence; a laned
+// call counts S such incidences (one a sweep lane: the lanes share the
+// window but not their hot sets) in one launch, the lane on the grid's y.
 //
 // Replaces the TPU kernel repro/kernels/crm_update.py::crm_update (Pallas
 // body _crm_kernel): a transpose-matmul tiled over (h/bm, h/bn) output
@@ -72,8 +74,10 @@ __host__ __device__ inline int rows_per_lane(int h) {
 // of each warp's rows.
 __global__ void __launch_bounds__(kThreads)
 crm_narrow_kernel(const float* __restrict__ H, float* __restrict__ out,
-                  int rows, int h, int ld) {
+                  int rows, int h, int ld, long long lane_stride) {
   extern __shared__ int cnt[];
+  H += blockIdx.y * lane_stride;
+  out += static_cast<size_t>(blockIdx.y) * h * h;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int per_lane = rows_per_lane(h);
@@ -124,8 +128,10 @@ crm_narrow_kernel(const float* __restrict__ H, float* __restrict__ out,
 // columns of the row.
 __global__ void __launch_bounds__(kThreads)
 crm_wide_kernel(const float* __restrict__ H, float* __restrict__ out,
-                int rows, int h, int ld) {
+                int rows, int h, int ld, long long lane_stride) {
   extern __shared__ int lists[];
+  H += blockIdx.y * lane_stride;
+  out += static_cast<size_t>(blockIdx.y) * h * h;
   const int words = (h + 31) / 32;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -180,20 +186,25 @@ crm_wide_kernel(const float* __restrict__ H, float* __restrict__ out,
 
 }  // namespace
 
-// H: (rows, ld) float32 with the first h columns used; out: (h, h) float32,
-// zeroed here.
-extern "C" int crm_update_launch(const float* H, float* out, int rows, int h,
-                                 int ld, cudaStream_t stream) {
-  if (h <= 0) return static_cast<int>(cudaGetLastError());
+// H: lanes x (rows, ld) float32 with the first h columns used, lane l at
+// H + l lane_stride; out: lanes x (h, h) float32, contiguous, zeroed here.
+// The lanes ride the grid's y axis: each lane gets blocks in proportion to
+// its rows, the whole grid at most 8 blocks a SM (as one unlaned call).
+extern "C" int crm_update_lanes_launch(const float* H, float* out, int lanes,
+                                       int rows, int h, int ld,
+                                       long long lane_stride,
+                                       cudaStream_t stream) {
+  if (h <= 0 || lanes <= 0) return static_cast<int>(cudaGetLastError());
   const cudaError_t zeroed = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(h) * h * sizeof(float), stream);
+      out, 0, static_cast<size_t>(lanes) * h * h * sizeof(float), stream);
   if (zeroed != cudaSuccess || rows <= 0) return static_cast<int>(zeroed);
+  const int most = max(1, 8 * kSMs / lanes);      // blocks a lane
   if (h <= kNarrow) {
     const int block_rows = kThreads * rows_per_lane(h);
-    const int blocks = min((rows + block_rows - 1) / block_rows, 8 * kSMs);
+    const int blocks = min((rows + block_rows - 1) / block_rows, most);
     const size_t smem = (h * h + block_rows) * sizeof(int);
-    crm_narrow_kernel<<<blocks, kThreads, smem, stream>>>(H, out, rows, h,
-                                                           ld);
+    crm_narrow_kernel<<<dim3(blocks, lanes), kThreads, smem, stream>>>(
+        H, out, rows, h, ld, lane_stride);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem =
@@ -204,8 +215,9 @@ extern "C" int crm_update_launch(const float* H, float* out, int rows, int h,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int blocks = min((rows + kWarps - 1) / kWarps, 8 * kSMs);
-  crm_wide_kernel<<<blocks, kThreads, smem, stream>>>(H, out, rows, h, ld);
+  const int blocks = min((rows + kWarps - 1) / kWarps, most);
+  crm_wide_kernel<<<dim3(blocks, lanes), kThreads, smem, stream>>>(
+      H, out, rows, h, ld, lane_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

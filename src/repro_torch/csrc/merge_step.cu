@@ -1,5 +1,7 @@
 // Initial density matrix D of the approximate merge (paper Alg. 3), with
-// the merge loop's act mask applied in the same pass:
+// the merge loop's act mask applied in the same pass (a laned call: S
+// sweep lanes' matrices in one launch, the lane on the grid's z, each lane
+// with its own omega, gamma and act count):
 //
 //   within[i] = X[i, i] / 2
 //   e(i u j)  = (within[i] + within[j]) + X[i, j]
@@ -74,6 +76,21 @@ constexpr int kMaxTileRows = kTileRows[0];
 constexpr int kLiveCtasPerSm = 3;
 constexpr int kMaxDevices = 64;
 
+// a laned call's per-lane knobs (device arrays, one entry a lane); the
+// unlaned call passes null pointers and its knobs by value
+struct LaneArgs {
+  const int* omega;
+  const float* gamma;
+  const int* n_act;  // null: the TPU kernel's function in every lane
+};
+
+// omega (omega - 1) / 2 in float64, rounded once to float32: exact in
+// float64 for any int omega, as the reference computes e_max
+__device__ __forceinline__ float e_max_of(int omega) {
+  const double om = static_cast<double>(omega);
+  return __double2float_rn(om * (om - 1.0) / 2.0);
+}
+
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -81,7 +98,19 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 __global__ void __launch_bounds__(kThreads)
 merge_density_kernel(const float* __restrict__ X, const int* __restrict__ sizes,
                      float* __restrict__ D, int S, int lim, float fill,
-                     int omega, float gamma, float e_max, int tile_rows) {
+                     int omega, float gamma, float e_max, int tile_rows,
+                     const LaneArgs lanes) {
+  if (lanes.omega != nullptr) {
+    // a laned call: lane z's matrices and its own knobs
+    const int z = blockIdx.z;
+    X += static_cast<size_t>(z) * S * S;
+    D += static_cast<size_t>(z) * S * S;
+    sizes += static_cast<size_t>(z) * S;
+    omega = lanes.omega[z];
+    gamma = lanes.gamma[z];
+    e_max = e_max_of(omega);
+    if (lanes.n_act != nullptr) lim = min(max(lanes.n_act[z], 0), S);
+  }
   // the tile's column side (within[j], sizes[j]) and row sizes, staged
   // once a CTA: threads 0-127 a column each, threads 128- a row each
   __shared__ __align__(16) float s_within[kCols];
@@ -190,6 +219,19 @@ cudaError_t current_sms(int* sms) {
   return cudaSuccess;
 }
 
+// the tile height for an act block of lim rows and columns in each of
+// `lanes` lanes: the tallest that still gives three CTAs a SM
+int pick_tile_rows(int lim, int lanes, int sms) {
+  const long long live_cols = (lim + kCols - 1) / kCols;
+  const long long want = static_cast<long long>(kLiveCtasPerSm) * sms;
+  int tile_rows = 0;
+  for (const int rows : kTileRows) {
+    tile_rows = rows;
+    if (lanes * live_cols * ((lim + rows - 1) / rows) >= want) break;
+  }
+  return tile_rows;
+}
+
 }  // namespace
 
 // X: (S, S) float32, sizes: (S,) int32, D: (S, S) float32, all contiguous
@@ -204,17 +246,39 @@ extern "C" int merge_density_launch(const float* X, const int* sizes, float* D,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int lim = n_act < 0 ? S : n_act;
   const float fill = n_act < 0 ? -1.0f : -2.0f;
-  const long long live_cols = (lim + kCols - 1) / kCols;
-  const long long want = static_cast<long long>(kLiveCtasPerSm) * sms;
-  int tile_rows = 0;
-  for (const int rows : kTileRows) {
-    tile_rows = rows;
-    if (live_cols * ((lim + rows - 1) / rows) >= want) break;
-  }
+  const int tile_rows = pick_tile_rows(lim, 1, sms);
   const dim3 grid(static_cast<unsigned>((S + kCols - 1) / kCols),
                   static_cast<unsigned>((S + tile_rows - 1) / tile_rows));
   merge_density_kernel<<<grid, kThreads, 0, stream>>>(
-      X, sizes, D, S, lim, fill, omega, gamma, e_max, tile_rows);
+      X, sizes, D, S, lim, fill, omega, gamma, e_max, tile_rows,
+      LaneArgs{nullptr, nullptr, nullptr});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The laned call: X lanes x (S, S) float32, sizes lanes x (S,) int32, D
+// lanes x (S, S) float32, all contiguous; omega (lanes,) int32 and gamma
+// (lanes,) float32 on the device, e_max derived per lane in the kernel;
+// n_act (lanes,) int32 on the device (each clamped to [0, S]) or null (the
+// TPU kernel's function), lim_max a bound on them (or S) that picks the
+// tile height.
+// The lane is the grid's z.
+extern "C" int merge_density_lanes_launch(const float* X, const int* sizes,
+                                          float* D, int lanes, int S,
+                                          const int* omega, const float* gamma,
+                                          const int* n_act, int lim_max,
+                                          cudaStream_t stream) {
+  if (S <= 0 || lanes <= 0) return static_cast<int>(cudaGetLastError());
+  int sms = 0;
+  const cudaError_t e = current_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float fill = n_act == nullptr ? -1.0f : -2.0f;
+  const int tile_rows = pick_tile_rows(lim_max, lanes, sms);
+  const dim3 grid(static_cast<unsigned>((S + kCols - 1) / kCols),
+                  static_cast<unsigned>((S + tile_rows - 1) / tile_rows),
+                  static_cast<unsigned>(lanes));
+  merge_density_kernel<<<grid, kThreads, 0, stream>>>(
+      X, sizes, D, S, S, fill, 0, 0.0f, 0.0f, tile_rows,
+      LaneArgs{omega, gamma, n_act});
   return static_cast<int>(cudaGetLastError());
 }
 

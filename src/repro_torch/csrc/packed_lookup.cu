@@ -32,13 +32,20 @@
 //    do not push the table out of the 50 MB L2.  A table of at most one
 //    6 MB slice takes `vector`: a warp a 2 KB piece of a row, 16-byte
 //    loads (ld.global.L2::cache_hint) four a lane in flight, then
-//    streaming stores (st.global.cs).  A larger one takes `sliced`: a warp
-//    a row, the table walked in 6 MB slices by a grid resident at once (a
-//    warp takes 32 requests, copies those in the slice), so that a row the
-//    ids repeat is read from device memory about once even when the table
-//    does not fit L2.  The TPU's one DMA a row has no form here: a ring of
-//    shared-memory stages filled by one cp.async.bulk a row measured
-//    slower than both on the H100 (PERF.md section 6).
+//    streaming stores (st.global.cs).  A larger one takes `sliced`: the
+//    table walked in 6 MB slices by a grid resident at once (a warp takes
+//    32 requests, copies those in the slice), so that a row the ids repeat
+//    is read from device memory about once even when the table does not
+//    fit L2.  A warp copies whole rows while the requests give every warp
+//    of the grid a group; when they are too few for that and the rows are
+//    long (above 64 KB: the expert cache's 23.6 MB clique rows, 2 a step),
+//    each row is cut into pieces of 2 KB multiples and a warp takes a
+//    (group, piece) pair, so that two rows still spread over the whole
+//    grid.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+//    6): two 23.6 MB rows in 0.0552 ms on the card alone, 51% of the byte
+//    bound, where a warp a row took 10.4 ms.  The TPU's one DMA a row has
+//    no form here: a ring of shared-memory stages filled by one
+//    cp.async.bulk a row measured slower than both on the H100.
 //  * ragged (any other size or alignment): a group of lanes a row, sized to
 //    the row up to a warp, in the widest unit that divides the row size and
 //    both buffers' alignment, with the same cache hints.
@@ -226,23 +233,32 @@ gather_wide_vector(const uint4* __restrict__ table,
 // every warp copies the requests of slice 0, then of slice 1, ..., so the
 // resident grid reads one slice at a time and each touched row comes from
 // device memory about once, however many requests repeat it.  A warp
-// takes kGroup consecutive requests at a time: their ids in one load, a
-// ballot of those in the slice, then one row copy each.
+// takes kGroup consecutive requests and one piece of their rows at a time
+// (a work item): their ids in one load, a ballot of those in the slice,
+// then one copy of the piece each.  With pieces == 1 a piece is the whole
+// row.  Unit offsets past 2^31 stay in 64-bit pointers: a piece's own
+// count fits an int (the launch bounds it).
 __global__ void __launch_bounds__(kThreads)
 gather_wide_sliced(const uint4* __restrict__ table,
                    const int* __restrict__ ids, uint4* __restrict__ out,
-                   int row_units, long long rows, int slice_rows,
-                   int slices) {
+                   long long row_units, long long rows, long long slice_rows,
+                   long long slices, long long pieces,
+                   long long piece_units) {
   const int lane = threadIdx.x & 31;
   const long long warp = (static_cast<long long>(blockIdx.x) * kThreads +
                           threadIdx.x) >> 5;
   const long long nwarps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const long long work = (rows + kGroup - 1) / kGroup * pieces;
   const std::uint64_t keep = evict_last_policy();
-  for (int s = 0; s < slices; ++s) {
-    const int lo = s * slice_rows;
-    const int hi = lo + slice_rows;
-    for (long long base = warp * kGroup; base < rows;
-         base += nwarps * kGroup) {
+  for (long long s = 0; s < slices; ++s) {
+    const long long lo = s * slice_rows;
+    const long long hi = lo + slice_rows;
+    for (long long i = warp; i < work; i += nwarps) {
+      const long long g = pieces == 1 ? i : i / pieces;
+      const long long u0 = (i - g * pieces) * piece_units;
+      const int count = static_cast<int>(
+          u0 + piece_units < row_units ? piece_units : row_units - u0);
+      const long long base = g * kGroup;
       const long long r = base + lane;
       const int id = (lane < kGroup && r < rows) ? __ldg(ids + r) : -1;
       unsigned hit = __ballot_sync(0xffffffffu, id >= lo && id < hi);
@@ -250,8 +266,8 @@ gather_wide_sliced(const uint4* __restrict__ table,
         const int j = __ffs(hit) - 1;
         hit &= hit - 1;
         const int src = __shfl_sync(0xffffffffu, id, j);
-        copy_units(table + static_cast<long long>(src) * row_units,
-                   out + (base + j) * row_units, 0, row_units, lane, keep);
+        copy_units(table + static_cast<long long>(src) * row_units + u0,
+                   out + (base + j) * row_units + u0, 0, count, lane, keep);
       }
     }
   }
@@ -345,22 +361,41 @@ int launch_ragged(const Device& dev, const void* table, const int* ids,
 }
 
 // the sliced vector form on a grid that is resident at once, so that all
-// warps walk the slices together
+// warps walk the slices together; rows cut into pieces when the request
+// groups leave warps idle and a row is long (a piece never more than 2^30
+// units, so its count fits an int)
 int launch_sliced(const Device& dev, const void* table, long long table_rows,
                   const int* ids, void* out, long long rows,
                   long long row_bytes, cudaStream_t stream) {
+  constexpr long long kPieceUnits = 32 * kUnroll;   // 2 KB
+  constexpr long long kSplitUnits = 4096;           // rows above 64 KB
+  constexpr long long kMaxPieceUnits = 1LL << 30;
   long long slice_rows = kSliceBytes / row_bytes;
   if (slice_rows < 1) slice_rows = 1;
   if (slice_rows > table_rows) slice_rows = table_rows;
   const long long slices = (table_rows + slice_rows - 1) / slice_rows;
-  const int most = dev.sms * dev.sliced_per_sm;
-  const long long want = (rows + kGroup * (kThreads / 32) - 1) /
-                         (kGroup * (kThreads / 32));
+  const long long row_units = row_bytes / 16;
+  const long long most = static_cast<long long>(dev.sms) * dev.sliced_per_sm;
+  const long long warps = most * (kThreads / 32);
+  const long long groups = (rows + kGroup - 1) / kGroup;
+  long long pieces = 1;
+  if (row_units > kSplitUnits && groups < warps) {
+    const long long want = (warps + groups - 1) / groups;
+    const long long most_pieces = (row_units + kPieceUnits - 1) / kPieceUnits;
+    pieces = want < most_pieces ? want : most_pieces;
+  }
+  long long piece_units = (row_units + pieces - 1) / pieces;
+  if (piece_units > kMaxPieceUnits) piece_units = kMaxPieceUnits;
+  if (pieces > 1 || piece_units < row_units) {
+    piece_units = (piece_units + kPieceUnits - 1) / kPieceUnits * kPieceUnits;
+    pieces = (row_units + piece_units - 1) / piece_units;
+  }
+  const long long items = groups * pieces;
+  const long long want = (items + kThreads / 32 - 1) / (kThreads / 32);
   const int blocks = static_cast<int>(want < most ? want : most);
   gather_wide_sliced<<<blocks, kThreads, 0, stream>>>(
       static_cast<const uint4*>(table), ids, static_cast<uint4*>(out),
-      static_cast<int>(row_bytes / 16), rows, static_cast<int>(slice_rows),
-      static_cast<int>(slices));
+      row_units, rows, slice_rows, slices, pieces, piece_units);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,6 +16,10 @@ Shared memory: a block keeps one (h,) float32 row of ``M A`` and 256 list
 entries, 4 h + 1 KB; the float32 exactness bound on h (h(h-1)/2 < 2**24,
 so h <= 5793) keeps it at or under 24 KB, within the 48 KB any block may
 use.
+
+A laned call takes ``M`` (L, S, h) and ``A`` (L, h, h), one pair a sweep
+lane, and returns ``X`` (L, S, S) in one launch of each pass, the lane on
+the grid's y axis.
 """
 from __future__ import annotations
 
@@ -27,13 +31,15 @@ from . import _build
 
 
 def clique_pair_edges_plain(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-    """The twin of ``clique_pair_edges_jnp``: two float32 products."""
+    """The twin of ``clique_pair_edges_jnp``: two float32 products
+    (batched over a leading lane axis of 3-D operands)."""
     Mf = M.to(torch.float32)
-    return Mf @ A.to(torch.float32) @ Mf.T
+    return Mf @ A.to(torch.float32) @ Mf.transpose(-1, -2)
 
 
 def clique_pair_edges(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-    """M (S, h) 0/1 float32 membership, A (h, h) 0/1 float32 -> X (S, S).
+    """M (S, h) 0/1 float32 membership, A (h, h) 0/1 float32 -> X (S, S);
+    laned M (L, S, h), A (L, h, h) -> X (L, S, S).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
     two passes (counted once, in ``clique_pair_edges.launches``).
@@ -46,27 +52,33 @@ def clique_pair_edges(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
             f"{M.device} and {A.device}")
     if M.dtype != torch.float32 or A.dtype != torch.float32:
         raise ValueError("clique_pair_edges needs float32 M and A")
-    if M.dim() != 2 or A.dim() != 2:
-        raise ValueError("clique_pair_edges needs 2-D M and A")
-    S, h = M.shape
-    if A.shape != (h, h):
-        raise ValueError(f"A must be ({h}, {h}), got {tuple(A.shape)}")
+    if M.dim() != A.dim() or M.dim() not in (2, 3):
+        raise ValueError("clique_pair_edges needs 2-D (or laned 3-D) M and A")
+    laned = M.dim() == 3
+    Ml, Al = (M, A) if laned else (M[None], A[None])
+    lanes, S, h = Ml.shape
+    if Al.shape != (lanes, h, h):
+        raise ValueError(f"A must be ({h}, {h}) a lane, got {tuple(A.shape)}")
     if not (M.is_contiguous() and A.is_contiguous()):
         raise ValueError("clique_pair_edges needs contiguous M and A")
     if h * (h - 1) // 2 >= 1 << 24:
         raise ValueError(f"h={h} puts the edge counts at the float32 "
                          "exactness bound 2**24")
-    X = torch.empty((S, S), dtype=torch.float32, device=M.device)
+    X = torch.empty((lanes, S, S), dtype=torch.float32, device=M.device)
     # the rows' lists of nonzero columns, then their lengths
-    lists = torch.empty((S * h + S,), dtype=torch.int32, device=M.device)
-    launch = _build.function("clique_density", "clique_pair_edges_launch", [
+    lists = torch.empty((lanes * (S * h + S),), dtype=torch.int32,
+                        device=M.device)
+    launch = _build.function("clique_density",
+                             "clique_pair_edges_lanes_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p])
     code = launch(M.data_ptr(), A.data_ptr(), X.data_ptr(), lists.data_ptr(),
-                  lists.data_ptr() + 4 * S * h, S, h, _build.stream(M))
+                  lists.data_ptr() + 4 * lanes * S * h, lanes, S, h,
+                  _build.stream(M))
     _build.check("clique_density", "clique_pair_edges", code)
     clique_pair_edges.launches += 1
-    return X
+    return X if laned else X[0]
 
 
 clique_pair_edges.launches = 0

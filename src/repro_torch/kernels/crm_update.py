@@ -12,6 +12,10 @@ counts are ``H^T H``; both versions give exact integers in float32
 (atomics in any order add integers below 2**24), so they agree bit for
 bit.
 
+A laned call takes ``H`` (S, rows, h), one incidence a sweep lane (the
+lanes share the window's rows but not their hot sets), and returns (S, h,
+h) in one launch, the lane on the grid's y axis.
+
 Shared memory: at h <= 32 a block keeps its (h, h) integer counts and one
 mask a row of its rows, at most 33 KB; above it each warp keeps a list of
 64 nonzero columns and one 32-bit mask per 32 columns, under the 48 KB a
@@ -31,41 +35,47 @@ F32_EXACT = 1 << 24
 
 
 def crm_update_plain(H: torch.Tensor) -> torch.Tensor:
-    """The twin of ``crm_update_jnp``: float32 ``H^T H``, zero diagonal."""
+    """The twin of ``crm_update_jnp``: float32 ``H^T H``, zero diagonal
+    (batched over a leading lane axis of a 3-D ``H``)."""
     Hf = H.to(torch.float32)
-    out = Hf.T @ Hf
-    return out * (1.0 - torch.eye(H.shape[1], dtype=torch.float32,
+    out = Hf.transpose(-1, -2) @ Hf
+    return out * (1.0 - torch.eye(H.shape[-1], dtype=torch.float32,
                                   device=H.device))
 
 
 def crm_update(H: torch.Tensor) -> torch.Tensor:
-    """H (rows, h) 0/1 float32 -> (h, h) float32 co-occurrence counts.
+    """H (rows, h) 0/1 float32 -> (h, h) float32 co-occurrence counts; a
+    laned H (S, rows, h) -> (S, h, h).
 
     ``H`` may be the leading columns of a wider buffer (unit column
-    stride, any row stride).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (counted in ``crm_update.launches``).
+    stride, any row and lane stride).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (counted in ``crm_update.launches``).
     """
     if H.device.type == "cpu":
         return crm_update_plain(H)
     if H.device.type != "cuda":
         raise ValueError(f"crm_update runs on cuda or cpu, not {H.device}")
-    if H.dtype != torch.float32 or H.dim() != 2:
+    if H.dtype != torch.float32 or H.dim() not in (2, 3):
         raise ValueError(
-            f"crm_update needs a 2-D float32 H, got {H.dtype} {tuple(H.shape)}")
-    rows, h = H.shape
-    if H.stride(1) != 1 or (rows > 1 and H.stride(0) < h):
+            "crm_update needs a 2-D or laned 3-D float32 H, got "
+            f"{H.dtype} {tuple(H.shape)}")
+    laned = H.dim() == 3
+    Hl = H if laned else H[None]
+    lanes, rows, h = Hl.shape
+    if Hl.stride(2) != 1 or (rows > 1 and Hl.stride(1) < h):
         raise ValueError("crm_update needs unit column stride and rows apart")
     if rows >= F32_EXACT:
         raise ValueError(f"{rows} rows reach the float32 exactness bound 2**24")
-    out = torch.empty((h, h), dtype=torch.float32, device=H.device)
-    launch = _build.function("crm_update", "crm_update_launch", [
+    out = torch.empty((lanes, h, h), dtype=torch.float32, device=H.device)
+    launch = _build.function("crm_update", "crm_update_lanes_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
-    code = launch(H.data_ptr(), out.data_ptr(), rows, h, max(H.stride(0), h),
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+    code = launch(H.data_ptr(), out.data_ptr(), lanes, rows, h,
+                  max(Hl.stride(1), h), Hl.stride(0) if lanes > 1 else 0,
                   _build.stream(H))
     _build.check("crm_update", "crm_update", code)
     crm_update.launches += 1
-    return out
+    return out if laned else out[0]
 
 
 crm_update.launches = 0

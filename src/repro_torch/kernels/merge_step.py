@@ -18,6 +18,15 @@ starting D is one launch.
 :func:`merge_density_plain` for CPU tensors.  Both keep the float32
 operation order of ``merge_density_jnp`` with one IEEE division, so they
 agree bit for bit.
+
+A laned call takes ``X`` (L, S, S) and ``sizes`` (L, S), one merge a sweep
+lane, with per-lane ``omega`` (L,) int32, ``gamma32`` (L,) float32 and
+``n_act`` (L,) integer (or None) tensors on X's device, and returns D (L,
+S, S) in one launch, the lane on the grid's z axis; each lane's ``e_max``
+is its omega's, rounded as :func:`e_max32` rounds it.  Nothing of the
+knobs goes through the host, so a laned call captures into a CUDA graph;
+``act_max``, the largest act count if the caller knows it, picks the
+tile height (default S).
 """
 from __future__ import annotations
 
@@ -68,32 +77,60 @@ def _checked_n_act(n_act, S: int) -> int | None:
     return k
 
 
-def merge_density(X: torch.Tensor, sizes: torch.Tensor, omega: int,
-                  gamma32: float, n_act: int | None = None) -> torch.Tensor:
-    """X (S, S) float32 pair edges, sizes (S,) int32 -> D (S, S) float32.
+def merge_density_lanes_plain(X: torch.Tensor, sizes: torch.Tensor,
+                              omega: torch.Tensor, gamma32: torch.Tensor,
+                              n_act: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """The laned twin: :func:`merge_density_plain` in every lane at once,
+    with lane ``l``'s own omega, gamma and act count (clamped to [0, S])."""
+    S = X.shape[1]
+    dev = X.device
+    om = omega.to(torch.int64)
+    within = torch.diagonal(X, dim1=1, dim2=2) / 2.0
+    e_u = (within[:, :, None] + within[:, None, :]) + X
+    omf = om.to(torch.float64)
+    e_max = (omf * (omf - 1.0) / 2.0).to(torch.float32)
+    eye = torch.eye(S, dtype=torch.bool, device=dev)
+    okp = (((sizes[:, :, None] + sizes[:, None, :]) == om[:, None, None])
+           & ~eye)
+    dens = torch.where(okp, e_u / e_max[:, None, None], -1.0)
+    gm = gamma32.to(torch.float32)[:, None, None]
+    D = torch.where(dens >= gm, dens, -1.0)
+    if n_act is None:
+        return D
+    k = n_act.to(torch.int64).clamp(0, S)
+    act = torch.arange(S, device=dev)[None, :] < k[:, None]
+    actp = act[:, :, None] & act[:, None, :] & ~eye
+    return torch.where(actp, D, -2.0)
 
-    ``omega`` and ``gamma32`` are host scalars (gamma is rounded to
-    float32 first).  ``n_act=None`` is the TPU kernel's function; a host
+
+def merge_density(X: torch.Tensor, sizes: torch.Tensor, omega,
+                  gamma32, n_act=None, act_max: int | None = None
+                  ) -> torch.Tensor:
+    """X (S, S) float32 pair edges, sizes (S,) int32 -> D (S, S) float32;
+    laned X (L, S, S), sizes (L, S) -> D (L, S, S).
+
+    Unlaned, ``omega`` and ``gamma32`` are host scalars (gamma is rounded
+    to float32 first).  ``n_act=None`` is the TPU kernel's function; a host
     int ``n_act=k`` in [0, S] also sets -2 on the diagonal and outside the
-    leading k x k block.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (counted in ``merge_density.launches``).
+    leading k x k block.  Laned, ``omega`` (L,) int32, ``gamma32`` (L,)
+    float32 and ``n_act`` (None or (L,) integer, each clamped to [0, S])
+    are tensors on X's device, ``act_max`` a host bound on the act counts
+    (the tile height's hint).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (counted in ``merge_density.launches``).
     """
+    if X.dim() == 3:
+        return _merge_density_lanes(X, sizes, omega, gamma32, n_act,
+                                    act_max)
     k = _checked_n_act(n_act, X.shape[0])
     if X.device.type == "cpu" and sizes.device.type == "cpu":
         return merge_density_plain(X, sizes, omega, gamma32, k)
-    if X.device.type != "cuda" or sizes.device != X.device:
-        raise ValueError(
-            f"merge_density runs on one cuda device or the cpu, got "
-            f"{X.device} and {sizes.device}")
-    if X.dtype != torch.float32 or sizes.dtype != torch.int32:
-        raise ValueError("merge_density needs float32 X and int32 sizes")
+    _check_operands(X, sizes)
     S = X.shape[0]
     if X.shape != (S, S) or sizes.shape != (S,):
         raise ValueError(
             f"merge_density needs X (S, S) and sizes (S,), got "
             f"{tuple(X.shape)} and {tuple(sizes.shape)}")
-    if not (X.is_contiguous() and sizes.is_contiguous()):
-        raise ValueError("merge_density needs contiguous X and sizes")
     D = torch.empty((S, S), dtype=torch.float32, device=X.device)
     launch = _build.function("merge_step", "merge_density_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -102,6 +139,50 @@ def merge_density(X: torch.Tensor, sizes: torch.Tensor, omega: int,
     code = launch(X.data_ptr(), sizes.data_ptr(), D.data_ptr(), S,
                   -1 if k is None else k, int(omega),
                   float(np.float32(gamma32)), e_max32(omega), _build.stream(X))
+    _build.check("merge_step", "merge_density", code)
+    merge_density.launches += 1
+    return D
+
+
+def _check_operands(X, sizes) -> None:
+    if X.device.type != "cuda" or sizes.device != X.device:
+        raise ValueError(
+            f"merge_density runs on one cuda device or the cpu, got "
+            f"{X.device} and {sizes.device}")
+    if X.dtype != torch.float32 or sizes.dtype != torch.int32:
+        raise ValueError("merge_density needs float32 X and int32 sizes")
+    if not (X.is_contiguous() and sizes.is_contiguous()):
+        raise ValueError("merge_density needs contiguous X and sizes")
+
+
+def _merge_density_lanes(X, sizes, omega, gamma32, n_act, act_max):
+    L, S = X.shape[0], X.shape[1]
+    if X.shape != (L, S, S) or sizes.shape != (L, S):
+        raise ValueError(
+            f"laned merge_density needs X (L, S, S) and sizes (L, S), got "
+            f"{tuple(X.shape)} and {tuple(sizes.shape)}")
+    knobs = (omega, gamma32) + (() if n_act is None else (n_act,))
+    if not all(isinstance(t, torch.Tensor) and t.shape == (L,)
+               and t.device == X.device for t in knobs):
+        raise ValueError("laned merge_density needs (L,) omega, gamma32 "
+                         "and n_act tensors on X's device")
+    if X.device.type == "cpu" and sizes.device.type == "cpu":
+        return merge_density_lanes_plain(X, sizes, omega, gamma32, n_act)
+    _check_operands(X, sizes)
+    om = omega.to(torch.int32).contiguous()
+    gm = gamma32.to(torch.float32).contiguous()
+    acts = None if n_act is None else n_act.to(torch.int32).contiguous()
+    lim = S if act_max is None or n_act is None else min(S, max(
+        0, operator.index(act_max)))
+    D = torch.empty((L, S, S), dtype=torch.float32, device=X.device)
+    launch = _build.function("merge_step", "merge_density_lanes_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p])
+    code = launch(X.data_ptr(), sizes.data_ptr(), D.data_ptr(), L, S,
+                  om.data_ptr(), gm.data_ptr(),
+                  None if acts is None else acts.data_ptr(), lim,
+                  _build.stream(X))
     _build.check("merge_step", "merge_density", code)
     merge_density.launches += 1
     return D

@@ -46,6 +46,7 @@ from repro_torch.kernels import (
     unpacked_lookup,
     unpacked_lookup_plain,
 )
+from repro_torch.kernels.merge_step import merge_density_lanes_plain
 from repro_torch.kernels.packed_lookup import CliqueLookup, clique_lookup
 from repro_torch.learned import Scorer, TrainConfig, train_policy, warm_params
 from repro_torch.learned.train import adamw_config, train_steps
@@ -502,11 +503,11 @@ def test_laned_sweep_on_card_equals_cpu(cuda_device):
 
 
 def test_super_group_and_shard_sweep_on_card_equals_cpu(cuda_device):
-    """The sweep's two non-laned branches on the card: AKPC points that
-    differ in theta (the reference's device-CGM super-group, replayed one
-    by one through the device clique generation) and a point over three
-    trace shards (one schedule per shard) equal the same sweep on the
-    CPU, state and costs."""
+    """The sweep's device-CGM super-group and its shards on the card: AKPC
+    points that differ in theta (the reference's device-CGM super-group,
+    the lanes of one laned device clique generation, one schedule) and a
+    point over three trace shards (one schedule per shard) equal the same
+    sweep on the CPU, state and costs."""
     def trace(seed, n_requests):
         return synth_trace(SynthConfig(
             kind="netflix", n_items=60, n_servers=12, n_requests=n_requests,
@@ -524,6 +525,9 @@ def test_super_group_and_shard_sweep_on_card_equals_cpu(cuda_device):
     assert merge_density.launches > md0
     assert eng.last_stats["device_cgm_points"] == 2
     assert eng.last_stats["shard_schedules"] == 3
+    assert eng.last_n_schedules == 1 + 3
+    (rec,) = eng.last_stats["cgm_groups"]
+    assert rec["lanes"] == 2 and rec["windows"] >= 3
     cpu = SweepEngine(device="cpu").run(pts)
     for a, b in zip(gpu, cpu):
         assert np.array_equal(a.state.partition.clique_of,
@@ -536,6 +540,71 @@ def test_super_group_and_shard_sweep_on_card_equals_cpu(cuda_device):
     assert gpu[2].shard_stats["n"] == 3
     np.testing.assert_allclose(gpu[2].shard_stats["totals"],
                                cpu[2].shard_stats["totals"], rtol=1e-9)
+
+
+@pytest.mark.parametrize("case", range(len(kernel_bench.LANE_SHAPES) * 4))
+def test_laned_cgm_kernels_equal_plain(cuda_device, case):
+    """Each laned CGM kernel (lanes 1, 2, 17 and 3 at h 1024; lanes with
+    different hot counts, omega, gamma and act counts) gives its laned
+    plain version's bits twice in a row, one launch a call."""
+    name, label, args = kernel_bench.lane_cases(cuda_device)[case]
+    kern = KERNELS[name]
+    if name == "merge_density":
+        def call():
+            return kern(*args[:4], n_act=args[4], act_max=args[5])
+        want = merge_density_lanes_plain(*args[:5])
+    else:
+        def call():
+            return kern(*args)
+        want = {"crm_update": crm_update_plain,
+                "clique_pair_edges": clique_pair_edges_plain}[name](*args)
+    n0 = kern.launches
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 2
+    assert torch.equal(got, want) and torch.equal(again, want), label
+
+
+@pytest.mark.parametrize("case", range(len(kernel_bench.WIDE_ROWS)))
+def test_sliced_lookup_on_multi_mb_rows(cuda_device, case):
+    """The ``sliced`` path on rows longer than a 6 MB slice (the expert
+    cache's 23.6 MB clique rows, two and three with a repeat) and a
+    16-byte unit either side of one slice: each row spread over the grid,
+    the plain gather's bits."""
+    label, table, ids = list(kernel_bench.wide_row_cases(cuda_device))[case]
+    want = packed_lookup_plain(table, ids)
+    got = packed_lookup(table, ids)
+    assert packed_lookup.last_path == "sliced"
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), label
+
+
+def test_super_group_lanes_on_card_equal_serial_card_runs(cuda_device):
+    """A mixed super-group (omega 2 / 3 / 5, a gamma outside the pruning
+    regime, top_frac 0.5 and 1.0) as one laned clique generation on the
+    card: every lane equals its serial device-CGM run on the card, state
+    and costs, and the three CGM kernels launch once a window."""
+    tr = synth_trace(SynthConfig(
+        kind="netflix", n_items=60, n_servers=12, n_requests=3000,
+        t_max=30.0, bundle_cover=1.0, bundle_zipf=0.7, seed=3))
+    knobs = [(0.1, 0.6, 2, 0.5), (0.3, 0.9, 3, 1.0), (0.2, 0.6, 5, 0.5)]
+    kws = [dict(params=CostParams(theta=th, gamma=g, omega=om), t_cg=0.73,
+                top_frac=tf) for th, g, om, tf in knobs]
+    eng = SweepEngine()
+    n0 = {k: KERNELS[k].launches for k in CGM_KERNELS}
+    got = eng.run([SweepPoint("akpc", tr, kw) for kw in kws])
+    (rec,) = eng.last_stats["cgm_groups"]
+    for k in CGM_KERNELS:
+        assert KERNELS[k].launches - n0[k] == rec["windows"], k
+    assert eng.last_n_schedules == 1 and rec["full_merge"]
+    for kw, a in zip(kws, got):
+        b = run_policy_torch(get_policy("akpc", **kw), tr)
+        assert np.array_equal(a.state.partition.clique_of,
+                              b.state.partition.clique_of)
+        assert np.array_equal(a.state.E, b.state.E)
+        assert np.array_equal(a.state.anchor, b.state.anchor)
+        assert a.costs.n_misses == b.costs.n_misses
+        assert np.isclose(a.total, b.total, rtol=1e-9, atol=0.0)
 
 
 @pytest.mark.parametrize("dtype", kernel_bench.LOOKUP_DTYPES)

@@ -223,8 +223,9 @@ def test_sweep_does_not_share_across_cgm_axes(unit_traces):
 
 def test_device_cgm_super_group_points(unit_traces):
     """AKPC points that differ in two CGM keys under a uniform dt are the
-    reference's device-CGM super-group; the port replays each through the
-    device clique generation, with the reference's results."""
+    reference's device-CGM super-group; the port replays them as the lanes
+    of one laned device clique generation (one schedule), with the
+    reference's results."""
     rt, pt = unit_traces
     scen = [Scenario(dict(theta=th), rt, pt) for th in (0.1, 0.3)]
     ref_pts, port_pts = _both([("akpc", sc, rt, pt, {}) for sc in scen])
@@ -232,6 +233,11 @@ def test_device_cgm_super_group_points(unit_traces):
     got = eng.run(port_pts)
     assert eng.last_stats["device_cgm_points"] == 2
     assert eng.last_stats["schedules"] == 0
+    assert eng.last_n_schedules == 1
+    (rec,) = eng.last_stats["cgm_groups"]
+    assert rec["lanes"] == 2 and rec["windows"] == got[0].n_windows
+    assert rec["sync_adjust"] == 2 * rec["windows"]
+    assert all(r.loop_stats["path"] == "sweep_cgm_lanes" for r in got)
     _check(RefSweepEngine(backend="numpy").run(ref_pts), got)
 
 
