@@ -50,13 +50,15 @@
    out of range that must raise;
 7. ``sweep_fig6``: the fig6 (64 alphas x 4 rhos) AKPC grid over
    ``netflix-table2`` as one ``SweepEngine`` call (one host schedule per
-   rho, 64 scenario lanes each), 8 points of it against serial card runs
-   (the device clique generation) and all 256 on a 20,000-request head
+   rho, 64 scenario lanes each, one scan: the schedules are one cohort),
+   8 points of it against serial card runs
+   (the device clique generation) and all 256 on a 10,000-request head
    against serial CPU runs: costs at 1e-9, equal partitions and state;
 8. ``sweep_fig10``: fig10's grid (2 size distributions x 3 price sigmas x
    no_packing / packcache / akpc, heterogeneous prices, 150 servers) at
    1M requests as one sweep: per-server dt, so the lane-batched scans
-   launch; every point against a serial card run;
+   launch (one ``seg_scan_step`` a live step a cohort: one scan a cohort
+   of the reference's key); every point against a serial card run;
 8b. ``sweep_fig7``: fig7's grid (6 thetas, 6 gammas, 5 omegas; ``akpc``
    and ``akpc_base``) over ``netflix-table2`` and the Table-II
    ``spotify`` trace at ``--requests`` as one sweep: 4 device-CGM
@@ -66,7 +68,7 @@
    window an ``akpc`` group, no scan or lookup); the first and last lane
    of each group against serial card runs, the netflix ``akpc`` group on
    a 20,000-request head against serial CPU runs and a 3-lane
-   ``catalog-10k`` theta group (top_frac 0.1: h 1024) on a 200,000-request
+   ``catalog-10k`` theta group (top_frac 0.1: h 1024) on a 100,000-request
    head against serial card runs (state, costs at 1e-9, windows and size
    history); then the laned kernels against their laned plain versions,
    bitwise and twice, on the inputs captured from these runs and on
@@ -109,7 +111,7 @@
     ``no_packing``), and the heterogeneous run streamed through a
     ``LiveServingEngine`` in 128-request slices (totals == offline);
 12. ``pipeline``: ``PackedDataPipeline`` at ``ShardStore``'s defaults, 64
-    rows of 2,048 tokens, 2,000 steps on the ``session`` and ``live``
+    rows of 2,048 tokens, 1,000 steps on the ``session`` and ``live``
     backends in lockstep: equal token batches, equal costs after
     ``drain()``, the live device clique generation's kernels once a window;
     the live engine's request stream replayed with the plain versions (no
@@ -123,6 +125,22 @@
     table of Granite-MoE-width expert rows (40 x 3 x 1536 x 512 f16)
     gathered a step's cliques at a time by ``packed_lookup`` (== its plain
     version), timed on the card alone against ``index_select``;
+13b. ``sweep_shards``: fig11's eval-seed shard axis (regime_shift, shards
+    at seeds 101 / 102 / 103 of 200,000 requests each, cut from fig11's
+    run size; both pricing models; all eight policies, ``learned`` with
+    the weights the ``learned`` phase trained) as one sweep: each point's
+    shard group is one scan of 3 lanes over its 3 schedules (per-lane
+    event rows in ``seg_scan_step``, one launch a live step under
+    per-server dt), every point equal to the ``serial`` backend's at 1e-9
+    with equal ``shard_stats``; the widest captured shard-group step held
+    bitwise against ``seg_scan_step_plain`` and against the loop of
+    per-shard launches, and timed beside that loop and its bound;
+13c. ``competitive``: the Thm-2 adversary replayed on the card realises
+    ``competitive_bound_corrected`` at 1e-12 for the five (S, omega) of
+    ``tests/test_competitive.py``; ``per_request_ratio_check`` and
+    ``generalized_per_request_ratio_check`` on a 1,500-request netflix
+    trace under table1 and heterogeneous pricing stay <= 1 and equal a CPU
+    run of the port;
 14. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
@@ -169,11 +187,17 @@ from repro_torch.core import (  # noqa: E402
     CacheEnvironment,
     CacheSession,
     CacheState,
+    CliquePartition,
     CostParams,
     SweepEngine,
     SweepPoint,
+    adversarial_trace,
+    competitive_bound_corrected,
+    generalized_per_request_ratio_check,
     get_cost_model,
     get_policy,
+    per_request_ratio_check,
+    replay_adversary,
     run_policy,
 )
 from repro_torch.core import cliques as port_cliques  # noqa: E402
@@ -183,6 +207,7 @@ from repro_torch.core.cgm_schedule import (  # noqa: E402
 )
 from repro_torch.core.replay import (  # noqa: E402
     TorchReplayEngine,
+    cost_spec,
     run_policy_torch,
     run_schedule,
     state_to_device,
@@ -263,6 +288,8 @@ LANE_CASES = ((1, 9), (3, 7), (8, 8193), (64, 1000))
 #: fig6's sweep grid (sweep_bench's defaults) and the points of it held
 #: against serial card runs: every rho at the two end alphas
 FIG6_ALPHAS, FIG6_RHOS = 64, 4
+#: requests of the fig6 head whose 256 points also run serially on the CPU
+FIG6_CPU_HEAD = 10_000
 #: ragged unpacked lookups: row widths, element types, requests
 RAGGED_D = (1, 3, 255, 256)
 RAGGED_DTYPES = (torch.int32, torch.float32, torch.float64)
@@ -288,7 +315,7 @@ SYNC_KINDS = {"gather": "lookup", "crm_matmul": "host_cgm",
 #: over a head of its trace, each lane against a serial card run
 FIG7_CPU_HEAD = 20_000
 FIG7_CATALOG_THETAS, FIG7_CATALOG_TOP_FRAC = (0.15, 0.2, 0.3), 0.1
-FIG7_CATALOG_HEAD = 200_000
+FIG7_CATALOG_HEAD = 100_000
 
 
 #: the learned phase: fig11's regime-shift stress trace, trained on the
@@ -300,9 +327,19 @@ LEARNED_EVAL_SEED = 101
 LEARNED_HEAD = 200_000
 TRAIN_LEAF_RTOL = 1e-5
 LEARNED_RIVALS = ("no_packing", "ttl", "packcache", "dp_greedy")
+#: the sweep_shards phase: fig11's eval-seed shard axis, each shard cut
+#: from fig11's run size to this many requests (the phase's time limit)
+SHARD_REQUESTS = 200_000
+#: the competitive phase: the adversary's (S, omega) of
+#: tests/test_competitive.py, the per-request checks' trace, the
+#: partition they start from (twelve cliques of five items) and the
+#: tolerance of the card against the CPU (sums taken in another order)
+ADVERSARY_CASES = ((1, 5), (2, 5), (5, 5), (3, 8), (1, 2))
+RATIO_REQUESTS = 1500
+RATIO_RTOL = 1e-12
 #: the pipeline phase: ShardStore's defaults (256 shards x 4,096 tokens,
 #: vocab 32,000, 8 domains), 64 rows of 2,048 tokens a step, T_CG 64
-PIPE_ROWS, PIPE_SEQ, PIPE_TCG, PIPE_STEPS = 64, 2048, 64.0, 2000
+PIPE_ROWS, PIPE_SEQ, PIPE_TCG, PIPE_STEPS = 64, 2048, 64.0, 1000
 #: the expert-cache phase: DeepSeek-V2's routing (160 routed experts,
 #: top-6; ``src/repro/configs/deepseek_v2_236b.py``), 4 hosts, T_CG 32,
 #: 256 tokens a step; experts co-activate in fixed groups of 8, one hot;
@@ -816,6 +853,59 @@ def scan_inputs(rng, L: int, starts: str, dev):
     return (torch.from_numpy(v).to(dev), torch.from_numpy(s).to(dev))
 
 
+def step_operands(args):
+    """Both scans' (S, L) operands of ``seg_scan_step``'s arguments, in
+    the shared form or with per-lane rows, stacked (the yardstick's
+    input)."""
+    dt = args[6]
+    if len(args) == 7:
+        return torch.stack([args[0] + dt[:, args[1]],
+                            args[3] + dt[:, args[4]]])
+    rows = args[7]
+    return torch.stack([args[0][rows] + dt.gather(1, args[1][rows]),
+                        args[3][rows] + dt.gather(1, args[4][rows])])
+
+
+def rows_step_record(report: list, args: tuple, label: str) -> dict:
+    """``seg_scan_step`` on a captured step with per-lane event rows:
+    bitwise against its plain version and against the loop of one
+    shared-form launch a lane (each lane's row, its dt), both twice;
+    timed, also on the card alone beside that loop (the yardstick) and
+    its bound."""
+    dt, rows = args[6], args[7]
+    G, L = (int(d) for d in args[0].shape)
+    S, m = (int(d) for d in dt.shape)
+    per_lane = [tuple(a[r] for a in args[:6]) + (dt[s:s + 1],)
+                for s, r in enumerate(rows.tolist())]
+
+    def kern():
+        return seg_scan_step(*args)
+
+    def loop():
+        return [seg_scan_step(*a) for a in per_lane]
+
+    def stacked():
+        outs = loop()
+        return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
+
+    both = step_operands(args)
+    err = held_equal(report, STEP, label,
+                     kern, lambda: seg_scan_step_plain(*args))
+    held_equal(report, STEP, f"{label} against the per-lane loop", kern,
+               stacked)
+    return {"shape": {"G": G, "S": S, "L": L, "m": m,
+                      "segments": [int(args[2].sum()), int(args[5].sum())]},
+            "max_abs_err": err, "ms": cuda_time(kern, REPS),
+            "plain_ms": cuda_time(lambda: seg_scan_step_plain(*args), REPS),
+            "library_ms": cuda_time(lambda: torch.cummax(both, dim=-1),
+                                    REPS),
+            **kernel_bench.device_times(
+                kern, lambda: torch.cummax(both, dim=-1), REPS),
+            "lane_loop_device_ms": cuda_graph_time(loop, REPS),
+            "library_call": kernel_bench.SCAN_YARDSTICK,
+            **kernel_bench.scan_bound(STEP, S, L, m, G)}
+
+
 def kernel_phase2(captured: dict, seed: int, dev) -> dict:
     """The scan and gather kernels, and the CGM kernels at the host clique
     generation's shapes: bitwise against their plain versions on inputs
@@ -890,20 +980,22 @@ def kernel_phase2(captured: dict, seed: int, dev) -> dict:
                     lambda k=kern, v=v, s=s: k(v, s),
                     lambda p=plain, v=v, s=s: p(v, s),
                     lambda v=v: torch.cummax(v, dim=-1),
-                    kernel_bench.scan_bound(name, S, L),
-                    {"S": S, "L": L, "segments": int(s.sum())})
+                    kernel_bench.scan_bound(name, S, L,
+                                            lane_starts=s.dim() == 2),
+                    {"S": S, "L": L, "segments": int(s.sum()),
+                     "lane_starts": s.dim() == 2})
         if STEP in cap:
+            # the shared form, or (a cohort of schedules) per-lane rows
             args = cap[STEP]
-            S, m = args[-1].shape
-            L = int(args[0].shape[0])
-            both = torch.stack([args[0] + args[-1][:, args[1]],
-                                args[3] + args[-1][:, args[4]]])
+            S, m = args[6].shape
+            L = int(args[0].shape[-1])
+            G = int(args[0].shape[0]) if len(args) > 7 else 1
             cases[STEP] = (
                 lambda a=args: seg_scan_step(*a),
                 lambda a=args: seg_scan_step_plain(*a),
-                lambda b=both: torch.cummax(b, dim=-1),
-                kernel_bench.scan_bound(STEP, S, L, m),
-                {"S": S, "L": L, "m": int(m),
+                lambda b=step_operands(args): torch.cummax(b, dim=-1),
+                kernel_bench.scan_bound(STEP, S, L, m, G),
+                {"S": S, "L": L, "m": int(m), "G": G,
                  "segments": [int(args[2].sum()), int(args[5].sum())]})
         if "packed_lookup" in cap:
             clique_of, items = cap["packed_lookup"]
@@ -1078,6 +1170,38 @@ def same_point(a, b, tag) -> None:
         raise AssertionError(f"{tag}: {e}") from None
 
 
+def cohort_count(pts) -> int:
+    """The scans the reference's sweep makes for unsharded points outside
+    device-CGM super-groups: one a cohort key (state rows and columns,
+    const_dt, uses_sizes, step-tensor set, statics, caching charge), the
+    step-tensor set being fixed by const_dt, uses_sizes and whether the
+    policy has a keep-or-not hook (``src/repro/core/sweep.py:462-477``)."""
+    keys = set()
+    for p in pts:
+        pol = get_policy(p.policy, **p.policy_kwargs)
+        pol.bind(p.trace.n, p.trace.m)
+        env = CacheEnvironment.resolve(getattr(pol, "env", None), p.trace,
+                                       pol.params)
+        model = get_cost_model(getattr(pol, "cost_model", "table1"), env)
+        statics = cost_spec(model, env)[1]
+        dt = np.asarray(model.dt())
+        keys.add((p.trace.n + 1, p.trace.m, bool((dt == dt[0]).all()),
+                  bool(model.uses_sizes), hasattr(pol, "item_keep"),
+                  statics, getattr(pol, "caching_charge", "requested")))
+    return len(keys)
+
+
+def scan_lines(groups) -> dict:
+    """What a sweep's scan calls were: lanes, member groups and schedules
+    of each, and their seconds."""
+    return {"scans": len(groups),
+            "lanes": [g["lanes"] for g in groups],
+            "members": [g["members"] for g in groups],
+            "scan_schedules": [g["schedules"] for g in groups],
+            "step_tensor_bytes": [g["xs_bytes"] for g in groups],
+            "scan_s": [g["scan_s"] for g in groups]}
+
+
 def sweep_fig6_phase(trace) -> dict:
     """fig6's grid as one sweep on the card, 8 points of it against serial
     card runs and the whole grid on a head against serial CPU runs."""
@@ -1093,6 +1217,11 @@ def sweep_fig6_phase(trace) -> dict:
     for k in ("packed_lookup", "crm_update", "clique_pair_edges"):
         if launches[k] <= 0:
             raise AssertionError(f"sweep fig6: kernel {k} never launched")
+    want_scans = cohort_count(pts)
+    if len(eng.last_stats["groups"]) != want_scans:
+        raise AssertionError(
+            f"sweep fig6: {len(eng.last_stats['groups'])} scans for "
+            f"{want_scans} cohorts")
     if any(launches[k] for k in (*SEG_KERNELS, STEP)):
         raise AssertionError("sweep fig6: a scan kernel launched at a "
                              "uniform dt")
@@ -1116,7 +1245,7 @@ def sweep_fig6_phase(trace) -> dict:
     for i, r in zip(idx, serial):
         same_point(r, swept[i], pts[i].tag)
 
-    head = trace.slice(0, min(HEAD["netflix-table2"], trace.n_requests))
+    head = trace.slice(0, min(FIG6_CPU_HEAD, trace.n_requests))
     pts_h = build_grid(head, FIG6_ALPHAS, FIG6_RHOS)
     swept_h = SweepEngine().run(pts_h)
     ser_cpu = SweepEngine(backend="serial", device="cpu")
@@ -1130,10 +1259,9 @@ def sweep_fig6_phase(trace) -> dict:
         "points": len(pts), "alphas": FIG6_ALPHAS, "rhos": FIG6_RHOS,
         "schedules": eng.last_n_schedules,
         "expected_schedules": want_schedules,
-        "lanes": [g["lanes"] for g in groups],
+        "expected_scans": want_scans, **scan_lines(groups),
         "sweep_wall_s": eng.last_wall,
         "sweep_per_point_s": eng.last_wall / len(pts),
-        "scan_s": [g["scan_s"] for g in groups],
         "schedule_s": [b["schedule_s"] for b in eng.last_stats["builds"]],
         "cg_s": [b["cg_s"] for b in eng.last_stats["builds"]],
         "lookup_s": [b["lookup_s"] for b in eng.last_stats["builds"]],
@@ -1171,6 +1299,11 @@ def sweep_fig10_phase(n_requests: int) -> tuple[dict, dict]:
     for k in (STEP, "packed_lookup"):
         if launches[k] <= 0:
             raise AssertionError(f"sweep fig10: kernel {k} never launched")
+    want_scans = cohort_count(pts)
+    if len(groups) != want_scans:
+        raise AssertionError(f"sweep fig10: {len(groups)} scans for "
+                             f"{want_scans} cohorts")
+    # one launch a live step a cohort (a scan), however many schedules
     live = sum(g["steps"] for g in groups if not g["const_dt"])
     if launches[STEP] != live or any(launches[k] for k in SEG_KERNELS):
         raise AssertionError(
@@ -1190,11 +1323,10 @@ def sweep_fig10_phase(n_requests: int) -> tuple[dict, dict]:
     line = {
         "requests": n_requests, "points": len(pts),
         "schedules": eng.last_n_schedules,
-        "lanes": [g["lanes"] for g in groups],
+        "expected_scans": want_scans, **scan_lines(groups),
         "per_server_dt_lanes": lanes,
         "sweep_wall_s": eng.last_wall,
         "sweep_per_point_s": eng.last_wall / len(pts),
-        "scan_s": [g["scan_s"] for g in groups],
         "schedule_s": [b["schedule_s"] for b in eng.last_stats["builds"]],
         "cg_s": [b["cg_s"] for b in eng.last_stats["builds"]],
         "lookup_s": [b["lookup_s"] for b in eng.last_stats["builds"]],
@@ -1657,13 +1789,14 @@ def learned_phase(n_requests: int) -> dict:
     ``no_packing`` / ``ttl`` / ``packcache`` / ``dp_greedy`` (fails unless
     it beats ``no_packing``), and the heterogeneous run streamed through a
     ``LiveServingEngine`` in arrival slices (totals == offline at 1e-9).
-    Returns the ``learned`` lines by pricing model."""
+    Returns the ``learned`` lines and the card-trained policies, by
+    pricing model."""
     params = CostParams(rho=4.0)
     train_tr = fig11.stress_trace("regime_shift", fig11.TRAIN_SEED,
                                   n_requests)
     ev = fig11.stress_trace("regime_shift", LEARNED_EVAL_SEED, n_requests)
     head = ev.slice(0, min(LEARNED_HEAD, ev.n_requests))
-    out = {}
+    out, trained = {}, {}
     for cm in fig11.MODELS:
         t_all = time.perf_counter()
         env = fig11.env_for(cm, params)
@@ -1774,7 +1907,152 @@ def learned_phase(n_requests: int) -> dict:
         line["phase_s"] = time.perf_counter() - t_all
         print("learned " + json.dumps(line), flush=True)
         out[cm] = line
-    return out
+        trained[cm] = lp
+    return out, trained
+
+
+def sweep_shards_phase(trained: dict) -> tuple[dict, dict]:
+    """fig11's eval-seed shard axis as one sweep on the card (regime_shift,
+    three shards a point, both pricing models, all eight policies;
+    ``learned`` with ``trained``, the ``learned`` phase's weights): each
+    point's shard group one scan of 3 lanes over 3 schedules, one
+    ``seg_scan_step`` launch a live step under per-server dt; every point
+    against the serial backend.  Returns the ``sweep_shards`` line and the
+    widest shard-group step's scan inputs."""
+    params = CostParams(rho=4.0)
+    pts = []
+    for cm in fig11.MODELS:
+        env = fig11.env_for(cm, params)
+        train_tr = fig11.stress_trace("regime_shift", fig11.TRAIN_SEED,
+                                      SHARD_REQUESTS)
+        t_cg = t_cg_for(train_tr, params, env=env, cost_model=cm)
+        shards = tuple(fig11.stress_trace("regime_shift", seed,
+                                          SHARD_REQUESTS)
+                       for seed in fig11.EVAL_SEEDS)
+        for name in fig11.POLICIES:
+            pts.append(SweepPoint(name, shards, dict(
+                params=params, env=env, cost_model=cm,
+                **fig11.policy_kwargs(name, t_cg, trained[cm])),
+                tag=f"regime_shift/{cm}/{name}"))
+    n_sh = len(fig11.EVAL_SEEDS)
+    reset_launches()
+    capture.INPUTS = {}
+    torch.cuda.synchronize()
+    eng = SweepEngine()
+    swept = eng.run(pts)
+    launches = launch_counts()
+    captured = {k: v[1] for k, v in capture.INPUTS.items()
+                if k in (*SEG_KERNELS, STEP)}
+    capture.INPUTS = None
+    groups = eng.last_stats["groups"]
+    for k in ("packed_lookup", "crm_update", "clique_pair_edges"):
+        if launches[k] <= 0:
+            raise AssertionError(f"sweep shards: kernel {k} never launched")
+    if len(groups) != len(pts) or any(
+            (g["lanes"], g["schedules"]) != (n_sh, n_sh) for g in groups):
+        raise AssertionError(
+            "sweep shards: not one scan of a lane a shard per shard group: "
+            f"{[(g['lanes'], g['schedules']) for g in groups]}")
+    live = sum(g["steps"] for g in groups if not g["const_dt"])
+    if not live or launches[STEP] != live or any(
+            launches[k] for k in SEG_KERNELS):
+        raise AssertionError(
+            f"sweep shards: {launches[STEP]} seg_scan_step launches for "
+            f"{live} per-server-dt steps")
+    if eng.last_n_schedules != n_sh * len(pts):
+        raise AssertionError(f"sweep shards built {eng.last_n_schedules} "
+                             f"schedules, not {n_sh * len(pts)}")
+    ser = SweepEngine(backend="serial")
+    serial = ser.run(pts)
+    for p, a, b in zip(pts, serial, swept):
+        same_costs(a, b, f"sweep shards {p.tag}")
+        same_point(a, b, f"sweep shards {p.tag}")
+        sa, sb = a.shard_stats, b.shard_stats
+        if sb["n"] != n_sh or not all(np.allclose(
+                sa[k], sb[k], rtol=1e-9, atol=0.0)
+                for k in ("totals", "mean", "std", "ci95")):
+            raise AssertionError(f"sweep shards {p.tag}: shard_stats {sb} "
+                                 f"!= serial {sa}")
+        if not (np.isfinite(b.total) and b.total > 0.0):
+            raise AssertionError(f"sweep shards {p.tag}: total {b.total}")
+    line = {
+        "config": "fig11 regime_shift", "eval_seeds": list(fig11.EVAL_SEEDS),
+        "requests_a_shard": SHARD_REQUESTS,
+        "cut": f"shards of {SHARD_REQUESTS} requests (fig11's run size "
+               "cut to keep the phase within the script's limit)",
+        "points": len(pts), "schedules": eng.last_n_schedules,
+        **scan_lines(groups),
+        "steps": [g["steps"] for g in groups],
+        "per_server_dt_steps": live,
+        "sweep_wall_s": eng.last_wall, "serial_wall_s": ser.last_wall,
+        "sweep_per_point_s": eng.last_wall / len(pts),
+        "serial_per_point_s": ser.last_wall / len(pts),
+        "schedule_s": sum(b["schedule_s"]
+                          for b in eng.last_stats["builds"]),
+        "seg_scan_launches": launches[STEP], "launches": launches,
+        "totals": {p.tag: r.total for p, r in zip(pts, swept)},
+        "ci95": {p.tag: r.shard_stats["ci95"] for p, r in zip(pts, swept)},
+    }
+    print("sweep_shards " + json.dumps(line), flush=True)
+    return line, captured
+
+
+def competitive_phase() -> dict:
+    """Thm 2 and Thm 1 on the card: the adversary's ratio equals the
+    corrected bound; the per-request checks (a one-request-a-step replay
+    with the per-step record) stay <= 1 and equal a CPU run."""
+    t0 = time.perf_counter()
+    adversary = []
+    for S, omega in ADVERSARY_CASES:
+        params = CostParams(omega=omega)
+        setup = adversarial_trace(S=S, omega=omega, n_phases=7,
+                                  params=params)
+        akpc, opt, _ = replay_adversary(setup, params)
+        want = competitive_bound_corrected(S, omega, params.alpha)
+        if not np.isclose(akpc / opt, want, rtol=1e-12, atol=0.0):
+            raise AssertionError(f"adversary S={S} omega={omega}: ratio "
+                                 f"{akpc / opt} != bound {want}")
+        adversary.append({"S": S, "omega": omega, "ratio": akpc / opt,
+                          "bound": want})
+    adversary_s = time.perf_counter() - t0
+    tr = paper_trace("netflix", RATIO_REQUESTS)
+    part = CliquePartition.from_cliques(
+        tr.n, [tuple(range(i, i + 5)) for i in range(0, tr.n, 5)])
+    params = CostParams()
+    checks = {}
+    for cm in ("table1", "heterogeneous"):
+        env = (None if cm == "table1" else CacheEnvironment.skewed(
+            tr.n, tr.m, params, price_sigma=0.6, size_sigma=0.3, seed=1))
+        runs = [("generalized", lambda dev, env=env, cm=cm:
+                 generalized_per_request_ratio_check(
+                     tr, part, params, env=env, cost_model=cm, device=dev))]
+        if cm == "table1":
+            runs.append(("thm1", lambda dev: per_request_ratio_check(
+                tr, part, params, device=dev)))
+        for label, fn in runs:
+            reset_launches()
+            t1 = time.perf_counter()
+            card = fn(None)
+            card_s = time.perf_counter() - t1
+            launches = launch_counts()
+            t1 = time.perf_counter()
+            cpu = fn("cpu")
+            cpu_s = time.perf_counter() - t1
+            if not (0.0 < card <= 1.0 + 1e-9
+                    and np.isclose(card, cpu, rtol=RATIO_RTOL, atol=0.0)):
+                raise AssertionError(f"competitive {cm} {label}: card "
+                                     f"{card}, CPU {cpu}")
+            if (launches[STEP] > 0) != (cm == "heterogeneous"):
+                raise AssertionError(f"competitive {cm} {label}: "
+                                     f"{launches[STEP]} scan launches")
+            checks[f"{cm} {label}"] = {
+                "worst": card, "cpu_worst": cpu, "card_s": card_s,
+                "cpu_s": cpu_s, "launches": launches}
+    line = {"adversary": adversary, "adversary_s": adversary_s,
+            "requests": tr.n_requests, "checks": checks,
+            "seconds": time.perf_counter() - t0}
+    print("competitive " + json.dumps(line), flush=True)
+    return line
 
 
 def record_feeds(cache) -> list:
@@ -2179,8 +2457,20 @@ def main() -> int:
     serve_bench_phase()
     phase("serve_bench", t0)
     t0 = time.perf_counter()
-    learned = learned_phase(args.requests4)
+    learned, trained = learned_phase(args.requests4)
     phase("learned", t0)
+    t0 = time.perf_counter()
+    shards_line, captured_shards = sweep_shards_phase(trained)
+    del trained
+    report_rows: list = []
+    rows_rec = rows_step_record(report_rows, captured_shards[STEP],
+                                "captured sweep-shards step (per-lane rows)")
+    print("kernels_rows " + json.dumps({"checks": report_rows,
+                                        "record": rows_rec}), flush=True)
+    phase("sweep_shards", t0)
+    t0 = time.perf_counter()
+    comp = competitive_phase()
+    phase("competitive", t0)
     t0 = time.perf_counter()
     pipe = pipeline_phase()
     phase("pipeline", t0)
@@ -2262,6 +2552,12 @@ def main() -> int:
                 fig6["launches"][counter]
             by_config.setdefault("sweep-fig10", {})["launches"] = \
                 fig10["launches"][counter]
+            by_config["sweep-shards per-lane rows, captured"] = {
+                **rows_rec, "launches": shards_line["launches"][counter]}
+            for label, rec2 in comp["checks"].items():
+                if rec2["launches"][counter]:
+                    by_config[f"competitive {label}"] = {
+                        "launches": rec2["launches"][counter]}
             for r in bench_recs:
                 if r["name"] in (name, counter):
                     sh = r["shape"]

@@ -370,15 +370,31 @@ def scan_step_inputs(rng, S: int, L: int, starts, m: int, device) -> tuple:
     return (*first, *second, dt)
 
 
-def scan_bound(name: str, S: int, L: int, m: int = 0) -> dict:
+def scan_step_rows_inputs(rng, G: int, S: int, L: int, starts, m: int,
+                          device) -> tuple:
+    """``seg_scan_step``'s per-lane-rows arguments: G event rows of each
+    scan, each drawn as :func:`scan_step_inputs` draws the shared form's,
+    a (S, m) dt and the (S,) int64 map of lane s to row s % G."""
+    per = [scan_step_inputs(rng, S, L, starts, m, device) for _ in range(G)]
+    ev = tuple(torch.stack([p[k] for p in per]) for k in range(6))
+    rows = torch.arange(S, dtype=torch.int64, device=device) % G
+    return (*ev, per[0][6], rows)
+
+
+def scan_bound(name: str, S: int, L: int, m: int = 0, G: int = 1,
+               lane_starts: bool = False) -> dict:
     """The bound of a scan at (S, L): each input read once, each output
-    written once (the step: its shared event inputs, dt, three outputs;
-    its adds and compares at the fp64 peak)."""
+    written once (the step: its G rows of event inputs, shared when G is
+    1, the lane map, dt, three outputs; its adds and compares at the fp64
+    peak; a standalone scan: its values, its (L,) starts or (S, L) with
+    ``lane_starts``, its outputs)."""
     if name == "seg_scan_step":
         return bound(4.0 * S * L, PEAK_FP64,
-                     2.0 * L * (8 + 8 + 1) + 8.0 * S * m + 24.0 * S * L)
+                     2.0 * G * L * (8 + 8 + 1) + 8.0 * S * m + 24.0 * S * L
+                     + (8.0 * S if G > 1 else 0.0))
     out = 12.0 if name == "seg_running_argmax" else 8.0
-    return bound(float(S * L), PEAK_FP64, S * L * (8.0 + out) + L)
+    return bound(float(S * L), PEAK_FP64,
+                 S * L * (8.0 + out) + (S * L if lane_starts else L))
 
 
 def scan_records(args: tuple, shape: dict, dev, reps: int) -> list[dict]:

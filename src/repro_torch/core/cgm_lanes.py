@@ -40,7 +40,7 @@ from ..kernels.crm_update import crm_update, crm_update_plain
 from ..kernels.merge_step import merge_density, merge_density_lanes_plain
 from .cgm import _accumulate_window, _count, _span, init_cgm_carry
 from .cgm_schedule import _F32_EXACT
-from .replay import _bucket, _transfer_hook, lane_spec_to_device
+from .replay import _bucket, _rate_hook, _transfer_hook, lane_spec_to_device
 
 _I64 = torch.int64
 _F64 = torch.float64
@@ -661,31 +661,6 @@ def _cgm_boundary(carry, now, cs, dt, item_sizes, stats, *, n, m, h, wcap,
 # ---------------------------------------------------------------------------
 # the Alg. 5/6 cost step, laned
 # ---------------------------------------------------------------------------
-def _per_server(a, j):
-    """Lane l's price of server ``j[l, e]`` from ``a`` (S, m)."""
-    return a.gather(1, j)
-
-
-def _transfer_lanes(kind, spec, counts, sizes, j):
-    if kind[0] == "table1":
-        return _transfer_hook(kind, spec, counts, sizes, j)
-    if kind[0] == "tiered":
-        v = sizes[..., None]
-        seg = torch.clamp(
-            torch.minimum(v, spec["tier_hi"]) - spec["tier_lo"], min=0.0)
-        return (_per_server(spec["lam_j"], j)
-                * (seg * spec["tier_rates"]).sum(dim=-1))
-    disc = torch.where(
-        counts > 1, (1.0 + (counts - 1.0) * spec["alpha"]) / counts, 1.0)
-    return _per_server(spec["lam_j"], j) * sizes * disc
-
-
-def _rate_lanes(kind, spec, counts, sizes, j):
-    if kind[0] == "table1":
-        return counts * spec["mu"]
-    return _per_server(spec["mu_j"], j) * sizes
-
-
 def _first_last(sk):
     S = sk.shape[0]
     diff = sk[:, 1:] != sk[:, :-1]
@@ -773,11 +748,11 @@ def _event_step(carry, x, spec, *, kind, charge, uses_sizes, item_sizes,
     rr = E_before + steps * dt_e
     rr = torch.where(rr <= t, rr + dt_e, rr)
     e_eff = torch.where(fresh, E_before, torch.where(lapsed, rr, t))
-    rate_stored = _rate_lanes(kind, spec, size, csize, j)
+    rate_stored = _rate_hook(kind, spec, size, csize, j)
     rent = torch.where(lapsed, rate_stored * (e_eff - E_before), 0.0)
-    tc = torch.where(miss, _transfer_lanes(kind, spec, size, csize, j), 0.0)
+    tc = torch.where(miss, _transfer_hook(kind, spec, size, csize, j), 0.0)
     if charge == "requested":
-        rate = _rate_lanes(kind, spec, n_req, req_size, j)
+        rate = _rate_hook(kind, spec, n_req, req_size, j)
     else:
         rate = rate_stored
     dur = torch.clamp((t + dt_e) - torch.maximum(e_eff, t), min=0.0)

@@ -1,8 +1,8 @@
 """Cost layer of the K-PackCache problem (paper §III.C, Table I, eqs. 1-5).
 
-A copy of ``repro.core.cost`` (without the competitive bounds) so the port
-never imports the JAX package; prices stay host numpy and reach the device
-through :func:`repro_torch.core.replay.cost_spec`.
+A copy of ``repro.core.cost`` so the port never imports the JAX package;
+prices stay host numpy and reach the device through
+:func:`repro_torch.core.replay.cost_spec`.
 
 Two cost components paid by the CDN operator:
 
@@ -317,6 +317,11 @@ def get_cost_model(
     return cls(env=env, **kwargs)
 
 
+def list_cost_models() -> list[str]:
+    """The registered cost model names (aliases included), sorted."""
+    return sorted(_COST_MODELS)
+
+
 # ---------------------------------------------------------------------------
 # shipped models
 # ---------------------------------------------------------------------------
@@ -495,3 +500,65 @@ class CostBreakdown:
         d = dataclasses.asdict(self)
         d["total"] = self.total
         return d
+
+
+# ---------------------------------------------------------------------------
+# competitive bounds (Thm. 1 + heterogeneous generalisation)
+# ---------------------------------------------------------------------------
+def competitive_bound(S: int, omega: int, alpha: float) -> float:
+    """Theorem 1's bound AS STATED: (2 + (omega-1)*alpha*S) / (1 + (S-1)*alpha).
+
+    NOTE (paper erratum, see DESIGN.md §7): the paper's own case analysis
+    derives C_AKPC = S*(2+(omega-1)*alpha)*lam and C_OPT = (1+(S-1)*alpha)*lam
+    but then mis-simplifies the ratio — S*(2+(omega-1)*alpha) was written as
+    2+(omega-1)*alpha*S, dropping S from the "2" term (they agree only at
+    S=1).  The bound that actually follows from the analysis (and that the
+    Thm-2 adversary realises EXACTLY — see tests/test_competitive.py) is
+    ``competitive_bound_corrected``.
+    """
+    if S < 1:
+        raise ValueError("S must be >= 1")
+    return (2.0 + (omega - 1) * alpha * S) / (1.0 + (S - 1) * alpha)
+
+
+def competitive_bound_corrected(S: int, omega: int, alpha: float) -> float:
+    """The tight bound implied by the paper's case analysis:
+
+        S * (2 + (omega-1)*alpha) / (1 + (S-1)*alpha).
+
+    Matches Thm 1 at S=1; for S>1 it is the ratio the paper's own adversary
+    (Thm 2) enforces, hence tight.
+    """
+    if S < 1:
+        raise ValueError("S must be >= 1")
+    return S * (2.0 + (omega - 1) * alpha) / (1.0 + (S - 1) * alpha)
+
+
+def competitive_bound_env(env: CacheEnvironment, S: int, omega: int) -> float:
+    """Heterogeneous generalisation of the corrected Thm-1 bound: the MAX
+    over servers of the per-server ratio, scaled by the worst volume skew.
+
+    The adversary pins all requests at one server j, where every price is
+    lam_j/mu_j and ``dt_j * mu_j = rho * lam_j`` by construction — so a
+    missed item of size s in an omega-clique of per-member size <= s_max
+    costs AKPC at most ``lam_j * s_max * (1 + (omega-1)*alpha + rho)``
+    (packed transfer share + dt rent) while OPT's one packed transfer of
+    the S missed items pays at least ``lam_j * s_min * (1+(S-1)*alpha)/S``
+    per item.  lam_j cancels inside a server, so the per-server ratio is
+
+        S * (1 + (omega-1)*alpha + rho) / (1 + (S-1)*alpha) * s_max/s_min
+
+    and the bound is its max over servers (constant here, but kept as a
+    max_j so per-server alpha/rho extensions stay one-line).  Reduces to
+    ``competitive_bound_corrected`` at rho = 1 with unit sizes.
+    """
+    if S < 1:
+        raise ValueError("S must be >= 1")
+    p = env.params
+    per_server = np.full(
+        max(env.m, 1),
+        S * (1.0 + (omega - 1) * p.alpha + p.rho) / (1.0 + (S - 1) * p.alpha),
+    )
+    sizes = env.sizes()
+    skew = float(sizes.max() / sizes.min()) if sizes.size else 1.0
+    return float(per_server.max() * skew)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time as _time
-from typing import Any, Callable
+from typing import Any, Callable, Protocol, runtime_checkable
 
 import numpy as np
 
@@ -72,6 +72,25 @@ class RunResult:
             wall_seconds=self.wall_seconds,
         )
         return d
+
+
+@runtime_checkable
+class CachePolicy(Protocol):
+    """Structural protocol implemented by every registered policy."""
+
+    name: str
+    params: CostParams
+    t_cg: float | None               # regeneration period; None = never
+
+    def bind(self, n: int, m: int) -> None:
+        """Reset per-run state for a catalog of n items and m servers."""
+        ...
+
+    def on_window(
+        self, items: np.ndarray, servers: np.ndarray, now: float
+    ) -> CliquePartition | None:
+        """Alg. 1 Event 1: mine the window, return the new partition."""
+        ...
 
 
 class BasePolicy:
@@ -504,6 +523,20 @@ def _learned_factory(**kw):
 
 
 _REGISTRY["learned"] = _learned_factory
+
+
+def register_policy(name: str, *aliases: str):
+    """Register a policy factory under ``name`` and ``aliases`` (usable as
+    a class decorator); a name already taken raises."""
+
+    def deco(factory):
+        for nm in (name, *aliases):
+            if nm in _REGISTRY:
+                raise ValueError(f"policy {nm!r} already registered")
+            _REGISTRY[nm] = factory
+        return factory
+
+    return deco
 
 
 def get_policy(name: str, **kwargs) -> BasePolicy:

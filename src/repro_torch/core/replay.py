@@ -20,6 +20,10 @@ The device half of ``repro.core.engine_jax``:
   ``anchor`` (S, n+1), spec arrays with a leading S) that share the
   schedule's event tensors: one scan prices S scenarios, as the
   reference's ``jax.vmap`` with the schedule unbatched does;
+* :func:`run_schedules` runs lanes that each replay a schedule of their
+  own (the sweep's trace shards and cohorts) in one scan: the distinct
+  schedules go up once as (G, ...) rows, each lane reads its row, and a
+  step's scans are one ``seg_scan_step`` launch over the rows;
 * :class:`TorchReplayEngine` and :func:`run_policy_torch` are the
   counterparts of ``JaxReplayEngine`` and ``run_policy_jax``.
 
@@ -159,8 +163,14 @@ def pad_spec_cols(spec: dict, ncol: int) -> dict:
 
 
 # The cost hooks take an unlaned spec (Python floats, (m,) arrays; the
-# device CGM) or a lane spec (lane_spec_to_device): ``[..., j]`` gathers
-# the servers' prices per lane either way.
+# device CGM) or a lane spec (lane_spec_to_device): ``_price`` gathers the
+# servers' prices per lane either way, and per lane from (S, n) events.
+def _price(a, j):
+    """Each event's price at its server: ``a[..., j]`` for (n,) server ids,
+    lane by lane (``gather``) for (S, n) ones."""
+    return a[..., j] if j.dim() == 1 else a.gather(-1, j)
+
+
 def _transfer_hook(kind, spec, counts, sizes, j):
     if kind[0] == "table1":
         if kind[1]:  # paper_literal: Alg. 5 line 11 as written
@@ -169,20 +179,49 @@ def _transfer_hook(kind, spec, counts, sizes, j):
             packed = (1.0 + (counts - 1.0) * spec["alpha"]) * spec["lam"]
         return torch.where(counts > 1, packed, counts * spec["lam"])
     if kind[0] == "tiered":
-        v = sizes[:, None]
+        v = sizes[..., None]
         seg = torch.clamp(
             torch.minimum(v, spec["tier_hi"]) - spec["tier_lo"], min=0.0)
-        return spec["lam_j"][..., j] * (seg * spec["tier_rates"]).sum(dim=-1)
+        return _price(spec["lam_j"], j) * (seg * spec["tier_rates"]).sum(
+            dim=-1)
     # heterogeneous
     disc = torch.where(
         counts > 1, (1.0 + (counts - 1.0) * spec["alpha"]) / counts, 1.0)
-    return spec["lam_j"][..., j] * sizes * disc
+    return _price(spec["lam_j"], j) * sizes * disc
 
 
 def _rate_hook(kind, spec, counts, sizes, j):
     if kind[0] == "table1":
         return counts * spec["mu"]
-    return spec["mu_j"][..., j] * sizes
+    return _price(spec["mu_j"], j) * sizes
+
+
+# The replay step's event tensors are (n,), shared by the scenario lanes,
+# or (S, n), each lane's own (lanes that each replay a schedule).
+def _take(a, idx):
+    """``a[:, idx]``: ``idx`` (n,) shared by the lanes, or (S, n) lane by
+    lane; a 3-D ``a`` gives whole rows."""
+    if idx.dim() == 1:
+        return a[:, idx]
+    if a.dim() == 3:
+        idx = idx[..., None].expand(-1, -1, a.shape[2])
+    return a.gather(1, idx)
+
+
+def _put(a, idx, src) -> None:
+    """``a[:, idx] = src`` in place, ``idx`` as :func:`_take` reads it."""
+    if idx.dim() == 1:
+        a[:, idx] = src
+        return
+    if a.dim() == 3:
+        idx = idx[..., None].expand(-1, -1, a.shape[2])
+    a.scatter_(1, idx, src.expand(idx.shape))
+
+
+def _lane(a, idx):
+    """``a[idx]`` for an event tensor ``a``: (n,) shared, or (S, n) with
+    ``idx`` (S, k) lane by lane."""
+    return a[idx] if a.dim() == 1 else a.gather(1, idx)
 
 
 def fresh_state_arrays(n: int, m: int) -> tuple:
@@ -216,7 +255,7 @@ def apply_acc(costs: CostBreakdown, schedule, acc: np.ndarray) -> CostBreakdown:
     return costs
 
 
-def _install_step(E, anchor, x, dt, now: float):
+def _install_step(E, anchor, x, dt, now):
     """Partition-install state translation on the device (in place).
 
     Matched cliques that kept their index are untouched; matched cliques
@@ -224,36 +263,40 @@ def _install_step(E, anchor, x, dt, now: float):
     CHANGED cliques (``inst_chg_*``) pay the member-wise segment-min and
     the Alg.-1 seeding.  Every gather reads the pre-install state before
     the first write.  Padding rows point at the dump row K.  ``E`` (S,
-    K+1, m), ``anchor`` (S, K+1) and ``dt`` (S, m) carry scenario lanes
-    (the install records are shared); an unlaned ``E`` (K+1, m) is one
-    lane.
+    K+1, m), ``anchor`` (S, K+1) and ``dt`` (S, m) carry scenario lanes;
+    an unlaned ``E`` (K+1, m) is one lane.  The install records are shared
+    by the lanes with ``now`` a float, or each lane's own, (S, ...) with
+    ``now`` an (S, 1) device tensor; a lane that installs nothing at this
+    step holds the padding records, which write the dump row alone.
     """
     if E.dim() == 2:
         return _install_step(E[None], anchor[None], x, dt[None], now)
     S, _, m = E.shape
-    ncr = x["inst_chg_rows"].shape[0]
-    movE = E[:, x["inst_mov_src"]]                  # (S, nmv, m)
-    movA = anchor[:, x["inst_mov_src"]]
-    item_E = E[:, x["inst_chg_src"]]                # (S, nci, m)
+    ncr = x["inst_chg_rows"].shape[-1]
+    movE = _take(E, x["inst_mov_src"])              # (S, nmv, m)
+    movA = _take(anchor, x["inst_mov_src"])
+    item_E = _take(E, x["inst_chg_src"])            # (S, nci, m)
     # segment_min over ncr segments: +inf where a segment is empty
     min_E = torch.full((S, ncr, m), float("inf"), dtype=E.dtype,
                        device=E.device)
-    seg = x["inst_chg_seg"][None, :, None].expand(S, -1, m)
+    seg = x["inst_chg_seg"]
+    seg = (seg[None] if seg.dim() == 1 else seg)[:, :, None].expand(S, -1, m)
     min_E.scatter_reduce_(1, seg, item_E, "amin", include_self=True)
     ok = x["inst_chg_ok"]
-    fresh = torch.where(ok[:, None] & (min_E > now), min_E, 0.0)
+    now3 = now[..., None] if isinstance(now, torch.Tensor) else now
+    fresh = torch.where(ok[..., None] & (min_E > now3), min_E, 0.0)
     row_max = fresh.max(dim=2).values               # (S, ncr)
     anew = torch.where(row_max > 0.0, fresh.argmax(dim=2), -1)
     need = ok & (row_max <= 0.0) & x["inst_seed_ok"]
     sj = x["inst_seed_j"]
     col = torch.arange(m, dtype=_I64, device=E.device)
-    fresh = torch.where(need[:, :, None] & (col[None, :] == sj[:, None]),
-                        (now + dt[:, sj])[:, :, None], fresh)
+    fresh = torch.where(need[:, :, None] & (col == sj[..., None]),
+                        (now + _take(dt, sj))[:, :, None], fresh)
     anew = torch.where(need, sj, anew)
-    E[:, x["inst_mov_dst"]] = movE
-    anchor[:, x["inst_mov_dst"]] = movA
-    E[:, x["inst_chg_rows"]] = fresh
-    anchor[:, x["inst_chg_rows"]] = anew
+    _put(E, x["inst_mov_dst"], movE)
+    _put(anchor, x["inst_mov_dst"], movA)
+    _put(E, x["inst_chg_rows"], fresh)
+    _put(anchor, x["inst_chg_rows"], anew)
 
 
 def _scan_hook(use_kernels: bool):
@@ -264,46 +307,63 @@ def _scan_hook(use_kernels: bool):
     return sr.seg_scan_step if use_kernels else sr.seg_scan_step_plain
 
 
+#: step tensors only the scans read: lanes with their own schedules hand
+#: them to ``seg_scan_step`` as (G, L) rows, never gathered a lane
+_SCAN_ONLY = ("t_s", "cj_t_s", "cj_j_s", "first_cjs")
+
+
 def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
-                 const_dt, scan_fn, capture=None):
+                 const_dt, scan_fn, capture=None, rows=None, xg=None,
+                 record=None):
     """One step of the replay scan: Alg. 5/6 over the step's events, for
     every scenario lane at once.
 
     ``E`` (S, K+1, m) / ``anchor`` (S, K+1) / ``acc`` (S, 6) are updated
-    in place; the step's event tensors ``x`` are shared by the lanes;
-    ``spec`` is in lane form (:func:`lane_spec_to_device`), ``dt`` (S, m)
-    and ``dt0`` its first column (S, 1), a device tensor (a Python float
-    divisor would make CUDA multiply by its reciprocal).  Each f64
-    operation is its own PyTorch op, so it rounds once, as numpy does:
-    the state is float for float the numpy engine's.  ``capture`` (a
-    dict) receives the scans' inputs: ``seg_scan_step``'s, and each
-    scan's operand formed by PyTorch ops for the standalone kernels.
+    in place; the step's event tensors ``x`` are (n,), shared by the
+    lanes, or (S, n), each lane's own: then ``xg`` holds the step's (G, n)
+    rows and ``rows`` (S,) each lane's, and the scans read their inputs
+    from ``xg`` through ``rows``.  ``spec`` is in lane form
+    (:func:`lane_spec_to_device`), ``dt`` (S, m) and ``dt0`` its first
+    column (S, 1), a device tensor (a Python float divisor would make CUDA
+    multiply by its reciprocal).  Each f64 operation is its own PyTorch
+    op, so it rounds once, as numpy does: the state is float for float the
+    numpy engine's.  ``capture`` (a dict) receives the scans' inputs:
+    ``seg_scan_step``'s, and each scan's operand formed by PyTorch ops for
+    the standalone kernels.  ``record`` (S, 3), when given, receives the
+    step's transfer, its caching charge on missed events and its missed
+    items (``n_req`` of the missed events), lane by lane.
     """
     S, K1, m = E.shape
     K = K1 - 1
     Ef = E.view(S, K1 * m)                          # flat (clique, server)
     cl, j, t, val = x["ev_c"], x["ev_j"], x["ev_t"], x["val"]
-    dt_e = dt0 if const_dt else dt[:, j]
-    E_before = torch.where(x["first_cj"], Ef[:, cl * m + j],
+    dt_e = dt0 if const_dt else _take(dt, j)
+    E_before = torch.where(x["first_cj"], _take(Ef, cl * m + j),
                            x["prev_cj_t"] + dt_e)   # (S, ne)
 
     # --- anchor resolution ------------------------------------------------
     if const_dt:
-        a0 = anchor[:, cl]
+        a0 = _take(anchor, cl)
         anchor_alive = torch.where(
             x["first_c"], (a0 == j) & (E_before > 0.0), x["prev_j"] == j)
     else:
         first_cs, c_s, j_s = x["first_cs"], x["c_s"], x["j_s"]
-        scan_in = (x["t_s"], j_s, first_cs, x["cj_t_s"], x["cj_j_s"],
-                   x["first_cjs"], dt)
+        src = x if rows is None else xg
+        scan_in = (src["t_s"], src["j_s"], src["first_cs"], src["cj_t_s"],
+                   src["cj_j_s"], src["first_cjs"], dt)
+        if rows is not None:
+            scan_in += (rows,)
         if capture is not None:
             capture["seg_scan_step"] = tuple(a.clone() for a in scan_in)
-            capture["seg_running_argmax"] = (x["t_s"] + dt[:, j_s],
+            t_l, cj_t, cj_j, first_cjs = (
+                (src[k] if rows is None else src[k][rows]) for k in
+                ("t_s", "cj_t_s", "cj_j_s", "first_cjs"))
+            capture["seg_running_argmax"] = (t_l + _take(dt, j_s),
                                              first_cs.clone())
-            capture["seg_running_max"] = (x["cj_t_s"] + dt[:, x["cj_j_s"]],
-                                          x["first_cjs"].clone())
+            capture["seg_running_max"] = (cj_t + _take(dt, cj_j),
+                                          first_cjs.clone())
         v, bidx, vmax = scan_fn(*scan_in)           # per lane
-        a0_s = anchor[:, c_s]
+        a0_s = _take(anchor, c_s)
         Eg = Ef.gather(1, c_s * m + a0_s.clamp(min=0))   # in-range gather
         Ea0_s = torch.where(a0_s >= 0, Eg, float("-inf"))
         prev_v = torch.where(
@@ -313,8 +373,8 @@ def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
             first_cs, 0, torch.cat([bidx.new_zeros((S, 1)), bidx[:, :-1]],
                                    dim=1))
         inbatch = ~first_cs & (prev_v >= Ea0_s)
-        anchor_seen_s = torch.where(inbatch, j_s[prev_b], a0_s)
-        anchor_seen = anchor_seen_s[:, x["inv_o_c"]]    # un-sort by gather
+        anchor_seen_s = torch.where(inbatch, _lane(j_s, prev_b), a0_s)
+        anchor_seen = _take(anchor_seen_s, x["inv_o_c"])  # un-sort
         anchor_alive = (anchor_seen == j) & (E_before > 0.0)
 
     fresh = E_before > t
@@ -351,24 +411,29 @@ def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
     nm = miss.sum(dim=1)
     acc += torch.stack([
         tc.sum(dim=1), cc.sum(dim=1), rent.sum(dim=1),
-        nm.to(torch.float64), (val.sum() - nm).to(torch.float64),
+        nm.to(torch.float64), (val.sum(dim=-1) - nm).to(torch.float64),
         torch.where(miss, size, 0.0).sum(dim=1),
     ], dim=1)
+    if record is not None:
+        record.copy_(torch.stack([
+            tc.sum(dim=1), torch.where(miss, cc, 0.0).sum(dim=1),
+            torch.where(miss, x["n_req"], 0.0).sum(dim=1)], dim=1))
 
     # --- state update on the compacted segment-last arrays ----------------
     uc, uj, ac = x["upd_c"], x["upd_j"], x["anc_c"]
     if const_dt:
-        Ef[:, uc * m + uj] = x["upd_t"] + dt0
-        a_cur = anchor[:, ac]
+        _put(Ef, uc * m + uj, x["upd_t"] + dt0)
+        a_cur = _take(anchor, ac)
         aE = Ef.gather(1, ac * m + a_cur.clamp(min=0))   # POST-update E
         upd = (a_cur < 0) | (x["anc_t"] + dt0 >= aE)
         anchor.scatter_(1, torch.where(upd, ac, K),
                         x["anc_j"].expand(S, -1))
     else:
-        Ef[:, uc * m + uj] = vmax[:, x["pos_u"]]
+        _put(Ef, uc * m + uj, _take(vmax, x["pos_u"]))
         pa = x["pos_a"]
-        win = v[:, pa] >= Ea0_s[:, pa]
-        anchor[:, ac] = torch.where(win, j_s[bidx[:, pa]], a0_s[:, pa])
+        win = _take(v, pa) >= _take(Ea0_s, pa)
+        _put(anchor, ac, torch.where(win, _lane(j_s, _take(bidx, pa)),
+                                     _take(a0_s, pa)))
 
 
 def schedule_to_device(schedule, device) -> dict:
@@ -383,11 +448,80 @@ def schedule_to_device(schedule, device) -> dict:
     return out
 
 
+def schedules_to_device(schedules, device) -> dict:
+    """G schedules' step tensors on ``device`` as (nb, G, ...) tensors, in
+    one upload per key: a step's G rows are one contiguous block, as
+    ``seg_scan_step`` reads them; int32 index arrays become int64."""
+    out = {}
+    for key in schedules[0].xs:
+        a = np.stack([np.asarray(s.xs[key]) for s in schedules], axis=1)
+        if a.dtype == np.int32:
+            a = a.astype(np.int64)
+        out[key] = torch.as_tensor(a).to(device)
+    return out
+
+
+def _nbytes(xs: dict) -> int:
+    """Bytes of the step tensors on the device."""
+    return sum(v.numel() * v.element_size() for v in xs.values())
+
+
+def _check_server_ids(schedule, m: int, name: str) -> None:
+    """Under per-server dt the scans' server ids must lie in [0, m): the
+    kernel prices any other as NaN, the plain chain raises or wraps."""
+    for key in () if schedule.const_dt else ("j_s", "cj_j_s"):
+        ids = np.asarray(schedule.xs[key])
+        if ids.size and (ids.min() < 0 or ids.max() >= m):
+            raise ValueError(f"{name}: {key} holds server ids outside "
+                             f"[0, {m}): [{ids.min()}, {ids.max()}]")
+
+
+def _scan(E3, A2, acc2, xs, live, inst, spec_d, statics, *, charge,
+          const_dt, scan_fn, check, capture_at, rows=None, gather=True,
+          now=None, record=None) -> dict:
+    """The replay scan's loop over the ``live`` steps: a Python loop that
+    branches on host flags only, so it makes no device sync
+    (``check=True`` makes any sync raise).  Shared steps (``rows`` None)
+    take each install's ``now`` from the host array ``now``; with ``rows``
+    the step tensors are (nb, G, ...), each lane reads its row, and
+    ``now`` comes from the device (``gather=False``: the rows are the
+    lanes already, in order).  Returns the scan inputs captured at step
+    ``capture_at``."""
+    dt = spec_d["dt"]                               # (S, m)
+    dt0 = dt[:, :1]
+    seen: dict = {}
+    if check:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in live:
+            xg = {k: v[b] for k, v in xs.items()}
+            if rows is None:
+                x, now_b = xg, None
+            else:
+                x = {k: v.index_select(0, rows) for k, v in xg.items()
+                     if k not in _SCAN_ONLY} if gather else xg
+                now_b = x["inst_now"][:, None]
+            if inst[b]:
+                _install_step(E3, A2, x, dt,
+                              float(now[b]) if rows is None else now_b)
+            _replay_step(E3, A2, acc2, x, spec_d, dt, dt0, kind=statics,
+                         charge=charge, const_dt=const_dt, scan_fn=scan_fn,
+                         capture=seen if b == capture_at else None,
+                         rows=rows, xg=xg,
+                         record=None if record is None else record[b])
+    finally:
+        if check:
+            torch.cuda.set_sync_debug_mode(mode)
+    return seen
+
+
 def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
                  anchor: torch.Tensor, *, charge="requested",
                  use_kernels: bool = True, stats: dict | None = None,
                  check_syncs: bool = False, xs: dict | None = None,
-                 acc: torch.Tensor | None = None):
+                 acc: torch.Tensor | None = None,
+                 record: torch.Tensor | None = None):
     """Execute one schedule on the device of ``E``; returns
     ``(E, anchor, acc)``, all on that device (``E`` and ``anchor`` are
     updated in place).
@@ -413,11 +547,14 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
     the step and install counts.  With capture on
     (:mod:`repro_torch.kernels.capture`), the widest step's scan inputs
     are kept.  Under per-server dt the scans' server ids are checked
-    against ``m`` on the host, once, before the upload (the kernel would
-    price an id outside [0, m) as NaN, the plain chain raise or wrap).
-    ``check_syncs=True`` on a CUDA device makes any operation of the loop
-    that would synchronise with the host raise
-    (``torch.cuda.set_sync_debug_mode``): the loop is meant to make none.
+    against ``m`` on the host, once, before the upload.  ``check_syncs=
+    True`` on a CUDA device makes any operation of the loop that would
+    synchronise with the host raise (``torch.cuda.set_sync_debug_mode``):
+    the loop is meant to make none.  ``record``, an (nb, S, 3) float64
+    tensor on the device (S = 1 unlaned), receives each live step's
+    transfer, caching charge on missed events and missed items, lane by
+    lane (:func:`_replay_step`); it is written in the loop and read by the
+    caller, once, after it.
     """
     from ..kernels import capture
 
@@ -429,50 +566,115 @@ def run_schedule(schedule, spec: dict, statics: tuple, E: torch.Tensor,
     S = E3.shape[0]
     spec_d = (spec if isinstance(spec["dt"], torch.Tensor)
               else lane_spec_to_device(spec, dev, laned))
-    dt = spec_d["dt"]                               # (S, m)
-    dt0 = dt[:, :1]
-    scan_fn = _scan_hook(use_kernels)
-    m = int(dt.shape[1])
-    for key in () if schedule.const_dt else ("j_s", "cj_j_s"):
-        ids = np.asarray(schedule.xs[key])
-        if ids.size and (ids.min() < 0 or ids.max() >= m):
-            raise ValueError(f"run_schedule: {key} holds server ids outside "
-                             f"[0, {m}): [{ids.min()}, {ids.max()}]")
+    _check_server_ids(schedule, int(spec_d["dt"].shape[1]), "run_schedule")
     if xs is None:
         xs = schedule_to_device(schedule, dev)
     inst = np.asarray(schedule.xs["inst"])
-    now = np.asarray(schedule.xs["inst_now"])
     n_ev = np.asarray(schedule.xs["val"]).sum(axis=1)
-    live = (n_ev > 0) | inst
+    live = np.nonzero((n_ev > 0) | inst)[0].tolist()
     widest = int(np.argmax(n_ev)) if capture.INPUTS is not None else -1
     if acc is None:
         acc = torch.zeros(((S, N_ACC) if laned else N_ACC),
                           dtype=torch.float64, device=dev)
-    acc2 = acc if laned else acc[None]
-    steps = installs = 0
-    seen: dict = {}
-    check = check_syncs and dev.type == "cuda"
-    if check:
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-    try:
-        for b in np.nonzero(live)[0].tolist():
-            x = {k: v[b] for k, v in xs.items()}
-            if inst[b]:
-                _install_step(E3, A2, x, dt, float(now[b]))
-                installs += 1
-            _replay_step(E3, A2, acc2, x, spec_d, dt, dt0, kind=statics,
-                         charge=charge, const_dt=schedule.const_dt,
-                         scan_fn=scan_fn,
-                         capture=seen if b == widest else None)
-            steps += 1
-    finally:
-        if check:
-            torch.cuda.set_sync_debug_mode(mode)
+    seen = _scan(E3, A2, acc if laned else acc[None], xs, live, inst,
+                 spec_d, statics, charge=charge, const_dt=schedule.const_dt,
+                 scan_fn=_scan_hook(use_kernels),
+                 check=check_syncs and dev.type == "cuda", capture_at=widest,
+                 now=np.asarray(schedule.xs["inst_now"]), record=record)
     for name, inputs in seen.items():
         capture.keep_largest(name, S * int(n_ev[widest]), lambda: inputs)
     if stats is not None:
-        stats.update(steps=steps, installs=installs, sync_scan=0, lanes=S)
+        stats.update(steps=len(live), installs=int(inst[live].sum()),
+                     sync_scan=0, lanes=S, xs_bytes=_nbytes(xs))
+    return E, anchor, acc
+
+
+def run_schedules(schedules, spec: dict, statics: tuple, E: torch.Tensor,
+                  anchor: torch.Tensor, *, rows=None, charge="requested",
+                  use_kernels: bool = True, stats: dict | None = None,
+                  check_syncs: bool = False,
+                  record: torch.Tensor | None = None):
+    """Execute lanes that each replay a schedule of their own, in one scan:
+    the counterpart of ``engine_jax.run_schedules`` (the trace-shard axis
+    and the cohorts of the sweep).  Returns ``(E, anchor, acc)`` as the
+    laned :func:`run_schedule` does.
+
+    ``schedules`` are the G DISTINCT schedules, each uploaded once: their
+    step tensors go up as (nb, G, ...) and ``rows`` (S,) names the
+    schedule of each lane (None: lane i replays ``schedules[i]``).  A lane
+    is never a copy of a schedule.  ``spec`` / ``E`` / ``anchor`` carry the
+    leading S axis.  The schedules must share padded dims
+    (:func:`~repro_torch.core.schedule.pad_schedule`), ``(n, m)``,
+    ``const_dt`` and their set of step tensors.
+
+    The loop runs the union of the lanes' live steps.  A lane with no
+    events at a step runs padding events, and a lane with no install at an
+    install step the padding records: both write the dump row alone, so
+    lane s equals an unlaned :func:`run_schedule` of its schedule under
+    spec lane s, the dump row aside.  Each install's ``now`` comes from
+    the device, a lane's own.  Under per-server dt each step's two scans
+    are one ``seg_scan_step`` launch over the (G, L) rows.  ``rows`` is
+    checked against [0, G) and every schedule's server ids against ``m``
+    on the host, once.  One distinct schedule (G = 1) is
+    :func:`run_schedule`'s shared form.  ``stats``, ``check_syncs`` and
+    ``record`` as :func:`run_schedule` takes them.
+    """
+    from ..kernels import capture
+    from .schedule import schedule_dims
+
+    G = len(schedules)
+    rows = np.arange(G) if rows is None else np.asarray(rows, np.int64)
+    S = int(rows.shape[0])
+    if E.dim() != 3 or E.shape[0] != S or tuple(anchor.shape[:1]) != (S,):
+        raise ValueError(f"run_schedules needs E (S, rows, cols) and anchor "
+                         f"(S, rows) for {S} lanes, got {tuple(E.shape)} "
+                         f"and {tuple(anchor.shape)}")
+    if G == 0 or rows.ndim != 1 or (S and (rows.min() < 0
+                                           or rows.max() >= G)):
+        raise ValueError(f"run_schedules: lane rows must lie in [0, {G}), "
+                         f"got {rows.tolist()}")
+    s0 = schedules[0]
+    for s in schedules[1:]:
+        if (s.const_dt != s0.const_dt or (s.n, s.m) != (s0.n, s0.m)
+                or schedule_dims(s) != schedule_dims(s0)
+                or set(s.xs) != set(s0.xs)):
+            raise ValueError(
+                "run_schedules needs schedules of one (n, m), const_dt, "
+                "padded dims and step-tensor set (pad_schedule)")
+    if G == 1:
+        return run_schedule(s0, spec, statics, E, anchor, charge=charge,
+                            use_kernels=use_kernels, stats=stats,
+                            check_syncs=check_syncs, record=record)
+    dev = E.device
+    if not (E.is_contiguous() and anchor.is_contiguous()):
+        raise ValueError("run_schedules needs a contiguous E and anchor")
+    spec_d = (spec if isinstance(spec["dt"], torch.Tensor)
+              else lane_spec_to_device(spec, dev, True))
+    for s in schedules:
+        _check_server_ids(s, int(spec_d["dt"].shape[1]), "run_schedules")
+    xs = schedules_to_device(schedules, dev)
+    rows_d = torch.as_tensor(rows, dtype=_I64, device=dev)
+    inst = np.stack([np.asarray(s.xs["inst"]) for s in schedules])
+    n_ev = np.stack([np.asarray(s.xs["val"]).sum(axis=1)
+                     for s in schedules])               # (G, nb)
+    live = np.nonzero(((n_ev > 0) | inst).any(axis=0))[0].tolist()
+    widest = (int(np.argmax(n_ev.max(axis=0)))
+              if capture.INPUTS is not None else -1)
+    acc = torch.zeros((S, N_ACC), dtype=torch.float64, device=dev)
+    seen = _scan(E, anchor, acc, xs, live, inst.any(axis=0), spec_d,
+                 statics, charge=charge, const_dt=s0.const_dt,
+                 scan_fn=_scan_hook(use_kernels),
+                 check=check_syncs and dev.type == "cuda",
+                 capture_at=widest, rows=rows_d,
+                 gather=not np.array_equal(rows, np.arange(G)), record=record)
+    for name, inputs in seen.items():
+        capture.keep_largest(name, S * int(n_ev[:, widest].max()),
+                             lambda: inputs)
+    if stats is not None:
+        stats.update(steps=len(live),
+                     installs=int(inst.any(axis=0)[live].sum()),
+                     sync_scan=0, lanes=S, schedules=G,
+                     xs_bytes=_nbytes(xs))
     return E, anchor, acc
 
 
@@ -511,34 +713,55 @@ def build_host_schedule(partition0, trace, clique_generator, t_cg, *,
 
 
 def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,
-                 device, state: CacheState | None = None,
-                 charge="requested", use_kernels: bool = True) -> tuple:
-    """Replay ``schedule`` once under each pricing spec of ``specs``: the
-    scenario lanes of one laned :func:`run_schedule`, every lane starting
-    from ``state`` (a fresh state when None).  Lane s's accumulator is
+                 device, state: CacheState | None = None, rows=None,
+                 charge="requested", use_kernels: bool = True,
+                 record: bool = False) -> tuple:
+    """Replay under each pricing spec of ``specs``, the lanes of one scan,
+    every lane starting from ``state`` (a fresh state when None).
+    ``schedule`` is the one schedule every lane replays (a laned
+    :func:`run_schedule`), or a list of distinct schedules with ``rows``
+    naming each lane's (:func:`run_schedules`).  Lane s's accumulator is
     folded into ``costs[s]``.  Returns ``(states, stats)``: the lanes'
     final :class:`~repro_torch.core.engine.CacheState` and the scan's
-    step counts and seconds."""
+    step counts and seconds; with ``record=True`` also ``stats["record"]``,
+    the (nb, S, 3) per-step record (:func:`run_schedule`) on the host."""
     t0 = time.perf_counter()
     S = len(specs)
-    part = schedule.final_partition
+    scheds = list(schedule) if isinstance(schedule, (list, tuple)) \
+        else [schedule]
+    rows = np.zeros(S, np.int64) if rows is None else np.asarray(rows)
+    s0 = scheds[0]
     if state is None:
-        state = CacheState.fresh(schedule.partition0, schedule.m)
+        state = CacheState.fresh(s0.partition0, s0.m)
     stats: dict = {}
     with _span("host.scan"):
-        E0, a0 = state_to_device(state, schedule.n, device)
+        E0, a0 = state_to_device(state, s0.n, device)
         spec = {k: np.stack([sp[k] for sp in specs]) for k in specs[0]}
-        E, anchor, acc = run_schedule(
-            schedule, spec, statics, E0.expand(S, -1, -1).contiguous(),
-            a0.expand(S, -1).contiguous(), charge=charge,
-            use_kernels=use_kernels, stats=stats)
+        rec = (torch.zeros((s0.nb, S, 3), dtype=torch.float64, device=device)
+               if record else None)
+        E0 = E0.expand(S, -1, -1).contiguous()
+        a0 = a0.expand(S, -1).contiguous()
+        if len(scheds) == 1:
+            E, anchor, acc = run_schedule(
+                s0, spec, statics, E0, a0, charge=charge,
+                use_kernels=use_kernels, stats=stats, record=rec)
+        else:
+            E, anchor, acc = run_schedules(
+                scheds, spec, statics, E0, a0, rows=rows, charge=charge,
+                use_kernels=use_kernels, stats=stats, record=rec)
         acc = acc.cpu().numpy()
-        E = E[:, :part.k].cpu().numpy()
-        anchor = anchor[:, :part.k].cpu().numpy()
+        kmax = max(sc.final_partition.k for sc in scheds)
+        E = E[:, :kmax].cpu().numpy()
+        anchor = anchor[:, :kmax].cpu().numpy()
+        if record:
+            stats["record"] = rec.cpu().numpy()
+    states = []
     for lane, c in enumerate(costs):
-        apply_acc(c, schedule, acc[lane])
-    states = [CacheState.from_device(part, E[lane], anchor[lane], schedule.m)
-              for lane in range(S)]
+        sched = scheds[rows[lane]]
+        apply_acc(c, sched, acc[lane])
+        part = sched.final_partition
+        states.append(CacheState.from_device(
+            part, E[lane, :part.k], anchor[lane, :part.k], sched.m))
     stats["scan_s"] = time.perf_counter() - t0
     return states, stats
 
@@ -567,6 +790,8 @@ class TorchReplayEngine:
         self.lookup = CliqueLookup(self.device)
         self.last_schedule = None
         self.last_stats: dict = {}
+        #: the last ``replay(record=True)``'s per-step record
+        self.last_record = None
 
     @property
     def state(self) -> CacheState:
@@ -581,14 +806,19 @@ class TorchReplayEngine:
 
     def replay(self, trace, clique_generator=None, t_cg=None,
                batch_size=None, *, progress=None, next_cg0=None,
-               win_prefix=None, use_kernels: bool = True) -> CostBreakdown:
+               win_prefix=None, use_kernels: bool = True,
+               record: bool = False) -> CostBreakdown:
         """Replay ``trace`` on the device, with clique generation every
         ``t_cg`` by ``clique_generator`` (a policy's ``on_window``).
 
         An AKPC policy the device clique generation admits runs it on the
         device; everything else takes the host-schedule replay.
         ``use_kernels=False`` runs the plain versions in place of the
-        kernels on the same device (the comparison run).
+        kernels on the same device (the comparison run).  ``record=True``
+        (host-schedule replay) keeps each step's transfer, caching charge
+        on missed events and missed items in ``last_record`` ((nb, 3),
+        host numpy; at ``batch_size=1`` with no clique generation, step i
+        is request i).
         """
         from .cgm import replay_cgm
         from .cgm_schedule import wants_device_cgm
@@ -599,7 +829,8 @@ class TorchReplayEngine:
         if clique_generator is not None and t_cg is not None:
             pol = getattr(clique_generator, "__self__", None)
             keep_fn = getattr(pol, "item_keep", None)
-            if pol is not None and wants_device_cgm(pol, trace, eng.model):
+            if pol is not None and not record and wants_device_cgm(
+                    pol, trace, eng.model):
                 return replay_cgm(
                     self, pol, trace, t_cg=t_cg, batch_size=batch_size,
                     next_cg0=next_cg0, win_prefix=win_prefix,
@@ -622,7 +853,9 @@ class TorchReplayEngine:
         (eng.state,), scan = replay_lanes(
             schedule, [self._spec], self._statics, [eng.costs],
             device=self.device, state=eng.state, charge=eng.caching_charge,
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, record=record)
+        if record:
+            self.last_record = scan.pop("record")[:, 0]
         eng._set_partition_caches(schedule.final_partition)
         if keep_fn is not None:
             # boundary evictions already ran on the device; this only

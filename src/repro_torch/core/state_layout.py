@@ -23,7 +23,7 @@ class StateLayout:
         if self.kind in ("bucketed", "row_sharded"):
             raise NotImplementedError(
                 f"state layout {self.kind!r} is not ported yet (ROADMAP "
-                "queue 1, item 3); the port runs the dense layout only")
+                "queue 1, items 4-5); the port runs the dense layout only")
         if self.kind not in LAYOUT_KINDS:
             raise ValueError(
                 f"unknown state layout {self.kind!r}; choose from "

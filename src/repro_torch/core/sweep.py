@@ -15,7 +15,13 @@ trace grids.  :class:`SweepEngine` makes the SCENARIO the batch axis:
    :func:`~repro_torch.core.replay.run_schedule` call: cost spec and state
    carry a leading lane axis, the schedule's event tensors are shared
    (the reference's ``jax.vmap`` with ``in_axes=(0, 0, None)``);
-4. each point comes back as the :class:`~repro_torch.core.policy.RunResult`
+4. groups that share padded state geometry, dt mode, sizes, step-tensor
+   set, statics and caching charge (the reference's cohort key) are the
+   lanes of ONE :func:`~repro_torch.core.replay.run_schedules` call: each
+   distinct schedule goes up once, and each lane reads its schedule's
+   rows (the reference's ``in_axes=(0, 0, 0)``); a one-group cohort keeps
+   the shared form of step 3;
+5. each point comes back as the :class:`~repro_torch.core.policy.RunResult`
    the serial ``run_policy`` returns, cost for cost at 1e-9, with its final
    :class:`~repro_torch.core.engine.CacheState`.
 
@@ -31,14 +37,14 @@ clique generation (:func:`~repro_torch.core.cgm_lanes.run_cgm_lanes`, the
 reference's vmapped ``run_cgm_schedule``): zero host clique-generation
 calls, one schedule a super-group.
 
-What this port runs differently from the reference, each point still
-giving its serial result: a trace-shard point replays each shard as a
-scenario group of its own (one schedule per shard), merged by
-:func:`_merge_shard_results`; the reference stacks the shards as lanes of
-one call.
+A trace-shard point builds one schedule a shard; a group of shard
+points (one share key) replays ``scenarios x shards`` lanes, lane ``li *
+S_sh + j`` scenario li on shard j, in one ``run_schedules`` call, and
+each scenario's shards merge into one RunResult with ``shard_stats``
+(:func:`_merge_shard_results`), as the reference does.
 
 The mesh and the ``bucketed`` / ``row_sharded`` layouts are refused
-(ROADMAP queue 1, item 3), and so is a cost model without a device
+(ROADMAP queue 1, items 4-5), and so is a cost model without a device
 formula: the port never falls back to another backend or to the CPU.
 """
 from __future__ import annotations
@@ -71,7 +77,7 @@ SHAREABLE_POLICIES = (
     "akpc", "akpc_no_acm", "akpc_base",
 )
 #: what the refusals name
-_ROADMAP = "ROADMAP queue 1, item 3"
+_ROADMAP = "ROADMAP queue 1, item 5"
 
 
 @dataclasses.dataclass
@@ -355,35 +361,41 @@ class SweepEngine:
             "clique_sizes": schedule.final_partition.sizes(),
         }
 
-    def _replay_group(self, rec, lanes: list, statics, charge) -> list:
-        """One laned ``run_schedule`` of a shared schedule under the specs
-        of ``lanes`` (prepared points); one RunResult per lane."""
-        schedule = rec["schedule"]
+    def _replay_group(self, recs: list, rows: list, lanes: list, statics,
+                      charge, members: int = 1) -> list:
+        """One scan over ``lanes`` (prepared points): lane s replays
+        ``recs[rows[s]]``'s schedule under its spec, one laned
+        ``run_schedule`` when every lane shares one schedule, else one
+        ``run_schedules``.  One RunResult per lane."""
         S = len(lanes)
         costs = [CostBreakdown(model=statics[0]) for _ in lanes]
         states, stats = replay_lanes(
-            schedule, [pr["spec"] for pr in lanes], statics, costs,
-            device=self.device, charge=charge)
+            [r["schedule"] for r in recs], [pr["spec"] for pr in lanes],
+            statics, costs, device=self.device, rows=rows, charge=charge)
+        s0 = recs[0]["schedule"]
         self.last_stats["groups"].append(
-            {"lanes": S, "steps": stats["steps"], "nb": schedule.nb,
-             "ne": schedule.ne, "const_dt": schedule.const_dt,
+            {"lanes": S, "members": members, "schedules": len(recs),
+             "steps": stats["steps"], "nb": s0.nb, "ne": s0.ne,
+             "const_dt": s0.const_dt, "xs_bytes": stats["xs_bytes"],
              "scan_s": stats["scan_s"]})
-        return [RunResult(
-            policy=pr["policy"].name,
-            costs=c,
-            clique_sizes=rec["clique_sizes"],
-            size_history=list(rec["size_history"]),
-            n_windows=rec["n_windows"],
-            cg_seconds=rec["cg_seconds"],
-            wall_seconds=stats["scan_s"] / S,
-            config=getattr(pr["policy"], "config", None),
-            state=st,
-            loop_stats={"path": "sweep_lanes", **stats},
-        ) for pr, c, st in zip(lanes, costs, states)]
+        out = []
+        for pr, c, st, r in zip(lanes, costs, states, rows):
+            rec = recs[r]
+            out.append(RunResult(
+                policy=pr["policy"].name,
+                costs=c,
+                clique_sizes=rec["clique_sizes"],
+                size_history=list(rec["size_history"]),
+                n_windows=rec["n_windows"],
+                cg_seconds=rec["cg_seconds"],
+                wall_seconds=stats["scan_s"] / S,
+                config=getattr(pr["policy"], "config", None),
+                state=st,
+                loop_stats={"path": "sweep_lanes", **stats},
+            ))
+        return out
 
     def _run_lanes(self, points) -> list[RunResult]:
-        from .schedule import pad_schedule, schedule_dims
-
         self.last_stats = {"groups": [], "builds": [], "cgm_groups": []}
         self.last_cgm_ofs = [None] * len(points)
         prepared = [self._prepare(pt) for pt in points]
@@ -407,43 +419,54 @@ class SweepEngine:
             schedules[skey] = self._build(g0["policy"], g0["pt"].trace, g0)
 
         # -- pad each (state geometry, dt mode, sizes) cohort to shared dims
-        cohorts: dict = {}
+        pads: dict = {}
         for rec in schedules.values():
             s = rec["schedule"]
-            cohorts.setdefault(
+            pads.setdefault(
                 (s.state_rows, s.state_cols, s.const_dt, s.uses_sizes),
                 []).append(rec)
-        for recs in cohorts.values():
-            dims_list = [schedule_dims(r["schedule"]) for r in recs]
-            dims = {k: max(d[k] for d in dims_list) for k in dims_list[0]}
-            for r, d0 in zip(recs, dims_list):
-                if d0 != dims:
-                    r["schedule"] = pad_schedule(r["schedule"], dims)
+        for recs in pads.values():
+            _pad_shared(recs)
 
         results: list[RunResult | None] = [None] * len(prepared)
-        # -- one laned scan per group ---------------------------------------
+        # -- one scan per cohort: groups sharing padded state geometry, the
+        # step-tensor set (e.g. TTL's "nokeep"), statics and charge --------
+        cohorts: dict = {}
         for (skey, statics, charge), idxs in groups.items():
-            res = self._replay_group(schedules[skey],
-                                     [prepared[i] for i in idxs],
-                                     statics, charge)
-            for i, r in zip(idxs, res):
+            s = schedules[skey]["schedule"]
+            cohorts.setdefault(
+                ((s.state_rows, s.state_cols, s.const_dt, s.uses_sizes),
+                 frozenset(s.xs), statics, charge), []).append((skey, idxs))
+        for (_geom, _keys, statics, charge), members in cohorts.items():
+            recs = [schedules[skey] for skey, _ in members]
+            lane_idx = [i for _, idxs in members for i in idxs]
+            rows = [g for g, (_, idxs) in enumerate(members) for _ in idxs]
+            res = self._replay_group(recs, rows,
+                                     [prepared[i] for i in lane_idx],
+                                     statics, charge, members=len(members))
+            for i, r in zip(lane_idx, res):
                 results[i] = r
 
-        # -- trace shards: each shard a scenario group of its own -----------
+        # -- trace shards: one schedule a shard, the group's scenarios x
+        # shards the lanes of one scan (lane li * S_sh + j) -----------------
         n_shard_schedules = 0
         for (skey, statics, charge), idxs in sh_groups.items():
             g0 = prepared[idxs[0]]
             policy = g0["policy"]
-            per_shard = []
+            recs = []
             for tr in g0["shards"]:
                 policy.bind(tr.n, tr.m)       # fresh CGM state per shard
-                rec = self._build(policy, tr, g0)
-                per_shard.append(self._replay_group(
-                    rec, [prepared[i] for i in idxs], statics, charge))
-            n_shard_schedules += len(per_shard)
-            for lane, i in enumerate(idxs):
+                recs.append(self._build(policy, tr, g0))
+            n_shard_schedules += len(recs)
+            _pad_shared(recs)
+            S_sh = len(recs)
+            res = self._replay_group(
+                recs, [j for _ in idxs for j in range(S_sh)],
+                [prepared[i] for i in idxs for _ in range(S_sh)],
+                statics, charge)
+            for li, i in enumerate(idxs):
                 results[i] = _merge_shard_results(
-                    [subs[lane] for subs in per_shard])
+                    res[li * S_sh:(li + 1) * S_sh])
 
         # -- device-CGM super-groups: one laned clique generation each -----
         for idxs in cgm_groups:
@@ -457,6 +480,18 @@ class SweepEngine:
                                shard_schedules=n_shard_schedules,
                                device_cgm_points=len(on_device))
         return results  # type: ignore[return-value]
+
+
+def _pad_shared(recs: list) -> None:
+    """Pad the schedules of ``recs`` (in place) to their largest dims, so
+    that they can be the rows of one scan."""
+    from .schedule import pad_schedule, schedule_dims
+
+    dims_list = [schedule_dims(r["schedule"]) for r in recs]
+    dims = {k: max(d[k] for d in dims_list) for k in dims_list[0]}
+    for r, d0 in zip(recs, dims_list):
+        if d0 != dims:
+            r["schedule"] = pad_schedule(r["schedule"], dims)
 
 
 def sweep_points(grid: Sequence[dict], backend: str = "torch", mesh=None,

@@ -19,6 +19,13 @@
 // same start flags: values (S, L), starts (L,).  CTA (., y) takes lane y;
 // the lanes are independent scans, each exactly the one-lane scan.
 //
+// Per-lane event rows: trace shards and cohorts of schedules give each
+// lane its own schedule.  seg_scan_step then takes (G, L) event rows and
+// an (S,) map from lane to row; the CTA of lane y offsets its six event
+// pointers by rows[y] * L and scans as before.  The standalone scans take
+// (S, L) starts, a start mask a lane, the same way.  Offsets need no
+// alignment: the tiles peel whatever a row's address leaves.
+//
 // Design (one CTA of 512 threads per (problem, lane), no cluster):
 // * The lane is walked in tiles of up to 8192 positions.  A tile's values
 //   and start flags are staged in dynamic shared memory (80 KB, above the
@@ -394,13 +401,14 @@ __device__ void scan_lane(const Source& src, const double* align,
 template <bool kIndex>
 __global__ void __launch_bounds__(kThreads, 1)
 seg_scan_kernel(const double* __restrict__ values,
-                const unsigned char* __restrict__ starts,
+                const unsigned char* __restrict__ starts, int starts_stride,
                 double* __restrict__ out_v, int* __restrict__ out_i, int L) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long row = static_cast<long long>(blockIdx.y) * L;
-  scan_lane<kIndex, int>(RowSource{values + row}, values + row, starts,
-                         out_v + row, kIndex ? out_i + row : nullptr, L,
-                         carve(smem));
+  scan_lane<kIndex, int>(
+      RowSource{values + row}, values + row,
+      starts + static_cast<long long>(blockIdx.y) * starts_stride,
+      out_v + row, kIndex ? out_i + row : nullptr, L, carve(smem));
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -410,12 +418,22 @@ seg_scan_step_kernel(const double* __restrict__ t_a,
                      const double* __restrict__ t_m,
                      const long long* __restrict__ j_m,
                      const unsigned char* __restrict__ s_m,
+                     const long long* __restrict__ rows,
                      const double* __restrict__ dt, int m,
                      double* __restrict__ out_v,
                      long long* __restrict__ out_i,
                      double* __restrict__ out_vmax, int L) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Shared sh = carve(smem);
+  if (rows != nullptr) {  // this lane's event row
+    const long long off = rows[blockIdx.y] * L;
+    t_a += off;
+    j_a += off;
+    s_a += off;
+    t_m += off;
+    j_m += off;
+    s_m += off;
+  }
   const double* dtl = dt + static_cast<long long>(blockIdx.y) * m;
   if (m <= kDtCap) {
     // joins the first tile's copies: its wait and barrier cover it
@@ -449,8 +467,9 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int* done) {
   return e;
 }
 
-int launch(const double* values, const unsigned char* starts, double* out_v,
-           int* out_i, int S, int L, cudaStream_t stream) {
+int launch(const double* values, const unsigned char* starts, int lane_starts,
+           double* out_v, int* out_i, int S, int L, cudaStream_t stream) {
+  const int stride = lane_starts ? L : 0;
   if (L <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   static int done_max[64], done_argmax[64];
   const dim3 grid(1, S);
@@ -459,49 +478,53 @@ int launch(const double* values, const unsigned char* starts, double* out_v,
     const int bytes = kBaseBytes + kPadded * sizeof(int);
     e = allow_smem(seg_scan_kernel<true>, bytes, done_argmax);
     if (e != cudaSuccess) return static_cast<int>(e);
-    seg_scan_kernel<true><<<grid, kThreads, bytes, stream>>>(values, starts,
-                                                             out_v, out_i, L);
+    seg_scan_kernel<true><<<grid, kThreads, bytes, stream>>>(
+        values, starts, stride, out_v, out_i, L);
   } else {
     e = allow_smem(seg_scan_kernel<false>, kBaseBytes, done_max);
     if (e != cudaSuccess) return static_cast<int>(e);
     seg_scan_kernel<false><<<grid, kThreads, kBaseBytes, stream>>>(
-        values, starts, out_v, nullptr, L);
+        values, starts, stride, out_v, nullptr, L);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// values (S, L) float64, starts (L,) bool (one byte each), shared by the S
-// lanes -> out_v (S, L) float64
+// values (S, L) float64, starts (L,) bool (one byte each) shared by the S
+// lanes, or (S, L) with lane_starts = 1 -> out_v (S, L) float64
 extern "C" int seg_running_max_launch(const double* values,
                                       const unsigned char* starts,
-                                      double* out_v, int S, int L,
-                                      cudaStream_t stream) {
-  return launch(values, starts, out_v, nullptr, S, L, stream);
+                                      int lane_starts, double* out_v, int S,
+                                      int L, cudaStream_t stream) {
+  return launch(values, starts, lane_starts, out_v, nullptr, S, L, stream);
 }
 
 // the same, plus out_i (S, L) int32: the latest index in the lane attaining
 // the max
 extern "C" int seg_running_argmax_launch(const double* values,
                                          const unsigned char* starts,
-                                         double* out_v, int* out_i, int S,
-                                         int L, cudaStream_t stream) {
-  return launch(values, starts, out_v, out_i, S, L, stream);
+                                         int lane_starts, double* out_v,
+                                         int* out_i, int S, int L,
+                                         cudaStream_t stream) {
+  return launch(values, starts, lane_starts, out_v, out_i, S, L, stream);
 }
 
 // Both scans of one replay step: (t_a, j_a, s_a) and (t_m, j_m, s_m) are the
-// step's (L,) event times (float64), server ids (int64, in [0, m)) and start
-// flags, shared by the lanes; dt (S, m) float64.  Writes out_v (S, L) and
-// out_i (S, L) int64, the running (max, latest argmax) of t_a + dt[lane,
-// j_a], and out_vmax (S, L), the running max of t_m + dt[lane, j_m].
+// step's event times (float64), server ids (int64, in [0, m)) and start
+// flags: (L,) shared by the lanes when rows is null, else (G, L) rows with
+// rows (S,) int64 in [0, G) naming lane y's row; dt (S, m) float64.
+// Writes out_v (S, L) and out_i (S, L) int64, the running (max, latest
+// argmax) of t_a + dt[lane, j_a], and out_vmax (S, L), the running max of
+// t_m + dt[lane, j_m].
 extern "C" int seg_scan_step_launch(const double* t_a, const long long* j_a,
                                     const unsigned char* s_a,
                                     const double* t_m, const long long* j_m,
                                     const unsigned char* s_m,
-                                    const double* dt, int m, double* out_v,
-                                    long long* out_i, double* out_vmax, int S,
-                                    int L, cudaStream_t stream) {
+                                    const long long* rows, const double* dt,
+                                    int m, double* out_v, long long* out_i,
+                                    double* out_vmax, int S, int L,
+                                    cudaStream_t stream) {
   if (L <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   static int done[64];
   const int bytes = kBaseBytes + kPadded * sizeof(long long) +
@@ -513,7 +536,7 @@ extern "C" int seg_scan_step_launch(const double* t_a, const long long* j_a,
       done);
   if (e != cudaSuccess) return static_cast<int>(e);
   seg_scan_step_kernel<<<dim3(2, S), kThreads, bytes, stream>>>(
-      t_a, j_a, s_a, t_m, j_m, s_m, dt, m, out_v, out_i, out_vmax, L);
+      t_a, j_a, s_a, t_m, j_m, s_m, rows, dt, m, out_v, out_i, out_vmax, L);
   return static_cast<int>(cudaGetLastError());
 }
 

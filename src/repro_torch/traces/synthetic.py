@@ -25,7 +25,7 @@ import dataclasses
 
 import numpy as np
 
-from .loader import Trace
+from .loader import Trace, TraceBatches, batch_tensors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +104,21 @@ def paper_trace(kind: str, n_requests: int = 1_000_000, seed: int = 0) -> "Trace
     else:
         raise ValueError(f"unknown paper trace kind: {kind}")
     return synth_trace(cfg)
+
+
+def synth_trace_batches(cfg: SynthConfig, batch_size: int = 4096) -> TraceBatches:
+    """Synthesise a trace directly as padded batch tensors (see loader)."""
+    return batch_tensors(synth_trace(cfg), batch_size)
+
+
+def paper_trace_batches(
+    kind: str,
+    n_requests: int = 1_000_000,
+    seed: int = 0,
+    batch_size: int = 4096,
+) -> TraceBatches:
+    """Table-II trace as padded batch tensors for the vectorised engine."""
+    return batch_tensors(paper_trace(kind, n_requests=n_requests, seed=seed), batch_size)
 
 
 def _item_sizes(cfg: SynthConfig, rng: np.random.Generator) -> np.ndarray | None:

@@ -342,6 +342,45 @@ def test_scan_step_in_cuda_graph_equals_eager(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
+@pytest.mark.parametrize("G,S,L,m", [(2, 2, 9, 600), (3, 7, 8193, 600),
+                                     (3, 3, 16_385, 150), (4, 9, 7, 5000)])
+def test_scan_step_rows_equal_plain(cuda_device, G, S, L, m):
+    """``seg_scan_step`` with per-lane event rows ((G, L) rows, lane s on
+    row s % G; odd L puts rows off 16-byte alignment) bitwise against its
+    plain version twice in a row, one launch a call, and against the
+    shared-form kernel on each lane's row."""
+    rng = np.random.default_rng([G, S, L, m])
+    args = kernel_bench.scan_step_rows_inputs(rng, G, S, L, "0.01", m,
+                                              cuda_device)
+    n0 = seg_scan_step.launches
+    got, again = seg_scan_step(*args), seg_scan_step(*args)
+    assert seg_scan_step.launches == n0 + 2
+    want = seg_scan_step_plain(*args)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    dt, rows = args[6], args[7].tolist()
+    for lane, r in enumerate(rows):
+        one = seg_scan_step(*(a[r] for a in args[:6]),
+                            dt[lane:lane + 1].contiguous())
+        for a, b in zip(got, one):
+            assert torch.equal(a[lane], b[0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("S,L", [(1, 9), (3, 8193), (4, 16_385)])
+def test_scan_kernels_lane_starts_equal_plain(cuda_device, S, L):
+    """The standalone scans over (S, L) starts, a start mask a lane."""
+    rng = np.random.default_rng([S, L, 7])
+    v = torch.from_numpy(rng.integers(0, 4, size=(S, L)).astype(
+        np.float64)).to(cuda_device)
+    st = torch.from_numpy(rng.random((S, L)) < 0.05).to(cuda_device)
+    assert torch.equal(seg_running_max(v, st), seg_running_max_plain(v, st))
+    gv, gi = seg_running_argmax(v, st)
+    pv, pi = seg_running_argmax_plain(v, st)
+    assert torch.equal(gv, pv) and torch.equal(gi, pi)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("C,omega,d,R,dtype", [
     (4096, 5, 128, 4096, torch.float32), (4096, 5, 128, 300, torch.float64),
     (60, 1, 1, 9999, torch.int32), (33, 3, 7, 64, torch.int32),
@@ -469,9 +508,9 @@ def test_lane_scans_equal_plain(cuda_device, S, L):
 
 
 def test_laned_sweep_on_card_equals_cpu(cuda_device):
-    """A small sweep under per-server dt (lanes of 3 scenarios sharing a
-    schedule) on the card equals the same sweep on the CPU, state and
-    costs; the lane scans launch."""
+    """A small sweep under per-server dt (two schedules of 3 scenario
+    lanes each, one cohort: one scan over 6 lanes) on the card equals the
+    same sweep on the CPU, state and costs; the lane scans launch."""
     trace = synth_trace(SynthConfig(
         kind="netflix", n_items=60, n_servers=40, n_requests=6000,
         t_max=4.0, bundle_cover=1.0, bundle_zipf=0.7, seed=2,
@@ -491,7 +530,8 @@ def test_laned_sweep_on_card_equals_cpu(cuda_device):
     gpu = eng.run(pts)
     assert seg_scan_step.launches > n0
     assert seg_running_max.launches == n1
-    assert max(g["lanes"] for g in eng.last_stats["groups"]) == 3
+    assert [(g["lanes"], g["schedules"])
+            for g in eng.last_stats["groups"]] == [(6, 2)]
     cpu = SweepEngine(device="cpu").run(pts)
     for a, b in zip(gpu, cpu):
         assert np.array_equal(a.state.partition.clique_of,
@@ -506,8 +546,8 @@ def test_super_group_and_shard_sweep_on_card_equals_cpu(cuda_device):
     """The sweep's device-CGM super-group and its shards on the card: AKPC
     points that differ in theta (the reference's device-CGM super-group,
     the lanes of one laned device clique generation, one schedule) and a
-    point over three trace shards (one schedule per shard) equal the same
-    sweep on the CPU, state and costs."""
+    point over three trace shards (one schedule a shard, the lanes of one
+    scan) equal the same sweep on the CPU, state and costs."""
     def trace(seed, n_requests):
         return synth_trace(SynthConfig(
             kind="netflix", n_items=60, n_servers=12, n_requests=n_requests,
@@ -540,6 +580,38 @@ def test_super_group_and_shard_sweep_on_card_equals_cpu(cuda_device):
     assert gpu[2].shard_stats["n"] == 3
     np.testing.assert_allclose(gpu[2].shard_stats["totals"],
                                cpu[2].shard_stats["totals"], rtol=1e-9)
+
+
+def test_hetero_shard_group_is_one_scan_on_card(cuda_device):
+    """Two scenarios over three shards under per-server dt: one scan of 6
+    lanes, one ``seg_scan_step`` launch (per-lane rows) a live step, and
+    the CPU sweep's state and costs."""
+    def trace(seed):
+        return synth_trace(SynthConfig(
+            kind="netflix", n_items=60, n_servers=12, n_requests=1500,
+            t_max=30.0, bundle_cover=1.0, bundle_zipf=0.7, seed=seed))
+
+    shards = [trace(s) for s in (3, 4, 5)]
+    params = CostParams()
+    env = CacheEnvironment.skewed(60, 12, params, price_sigma=0.8,
+                                  size_sigma=0.4, seed=1)
+    pts = [SweepPoint("akpc", shards, dict(
+        params=CostParams(alpha=a), env=env, cost_model="heterogeneous",
+        t_cg=0.73, top_frac=1.0)) for a in (0.7, 0.9)]
+    n0 = seg_scan_step.launches
+    eng = SweepEngine()
+    gpu = eng.run(pts)
+    (grp,) = eng.last_stats["groups"]
+    assert (grp["lanes"], grp["schedules"]) == (6, 3)
+    assert seg_scan_step.launches - n0 == grp["steps"] > 0
+    cpu = SweepEngine(device="cpu").run(pts)
+    for a, b in zip(gpu, cpu):
+        assert np.array_equal(a.state.E, b.state.E)
+        assert np.array_equal(a.state.anchor, b.state.anchor)
+        assert a.costs.n_misses == b.costs.n_misses
+        assert np.isclose(a.total, b.total, rtol=1e-9, atol=0.0)
+        np.testing.assert_allclose(a.shard_stats["totals"],
+                                   b.shard_stats["totals"], rtol=1e-9)
 
 
 @pytest.mark.parametrize("case", range(len(kernel_bench.LANE_SHAPES) * 4))
@@ -935,3 +1007,119 @@ def test_consumers_expert_cache_live_on_card_equals_cpu(cuda_device):
         assert np.isclose(sc.akpc_total, other.akpc_total, rtol=1e-9)
         assert sc.nopack_total == other.nopack_total
         assert sc.cliques == other.cliques
+
+
+def test_competitive_checks_on_card_equal_cpu(cuda_device):
+    """The Thm-2 adversary on the card realises the corrected bound, and
+    the per-request checks (a batch-1 replay with the per-step record)
+    give the CPU's values under table1 and heterogeneous pricing."""
+    from repro_torch.core import (
+        CliquePartition,
+        adversarial_trace,
+        generalized_per_request_ratio_check,
+        per_request_ratio_check,
+        replay_adversary,
+    )
+    from repro_torch.traces import paper_trace
+
+    params = CostParams(omega=5)
+    setup = adversarial_trace(S=2, omega=5, n_phases=7, params=params)
+    akpc, opt, bound = replay_adversary(setup, params)
+    assert np.isclose(akpc / opt, bound, rtol=1e-12, atol=0.0)
+    tr = paper_trace("netflix", 600, seed=4)
+    part = CliquePartition.from_cliques(
+        60, [tuple(range(i, i + 5)) for i in range(0, 60, 5)])
+    got = per_request_ratio_check(tr, part, CostParams())
+    assert np.isclose(got, per_request_ratio_check(
+        tr, part, CostParams(), device="cpu"), rtol=1e-12, atol=0.0)
+    assert got <= 1.0
+    env = CacheEnvironment.skewed(60, tr.m, CostParams(), price_sigma=0.6,
+                                  size_sigma=0.3, seed=5)
+    kw = dict(env=env, cost_model="heterogeneous")
+    got = generalized_per_request_ratio_check(tr, part, CostParams(), **kw)
+    assert np.isclose(got, generalized_per_request_ratio_check(
+        tr, part, CostParams(), device="cpu", **kw), rtol=1e-12, atol=0.0)
+    assert got <= 1.0
+
+
+@pytest.mark.parametrize("cost_model", ["table1", "heterogeneous"])
+def test_paper_literal_on_card_equals_cpu(cuda_device, cost_model):
+    """``cost_mode="paper_literal"``: AKPC on the device CGM (table1) and
+    on the host schedule (heterogeneous) gives the CPU's state and
+    costs."""
+    from repro_torch.bench.common import t_cg_for
+    from repro_torch.traces import paper_trace
+
+    tr = paper_trace("spotify", 6000, seed=3)
+    params = CostParams(cost_mode="paper_literal")
+    env = None
+    if cost_model == "heterogeneous":
+        env = CacheEnvironment.skewed(tr.n, tr.m, params, price_sigma=0.5,
+                                      size_sigma=0.5, seed=3)
+    kw = dict(params=params, env=env, cost_model=cost_model, top_frac=1.0,
+              t_cg=t_cg_for(tr, params, env=env, cost_model=cost_model))
+    gpu = run_policy(get_policy("akpc", **kw), tr)
+    cpu = run_policy(get_policy("akpc", **kw), tr, device="cpu")
+    assert np.array_equal(gpu.state.partition.clique_of,
+                          cpu.state.partition.clique_of)
+    assert np.array_equal(gpu.state.E, cpu.state.E)
+    assert np.array_equal(gpu.state.anchor, cpu.state.anchor)
+    assert gpu.costs.n_misses == cpu.costs.n_misses
+    assert np.isclose(gpu.total, cpu.total, rtol=1e-9, atol=0.0)
+
+
+def test_run_schedules_on_card_makes_no_sync(cuda_device):
+    """``run_schedules`` over three shard schedules (per-server dt, lanes
+    on rows 0, 2, 1, 2) under sync debug mode "error": no host sync in
+    the loop, one ``seg_scan_step`` launch a live step, and the CPU's
+    state and costs."""
+    from repro_torch.core import get_cost_model
+    from repro_torch.core.cliques import CliquePartition
+    from repro_torch.core.replay import (
+        cost_spec,
+        fresh_state_arrays,
+        run_schedules,
+    )
+    from repro_torch.core.schedule import (
+        build_schedule,
+        pad_schedule,
+        schedule_dims,
+    )
+
+    params = CostParams()
+    env = CacheEnvironment.skewed(60, 12, params, price_sigma=0.8,
+                                  size_sigma=0.4, seed=1)
+    scheds = []
+    for seed in (3, 4, 5):
+        tr = synth_trace(SynthConfig(
+            kind="netflix", n_items=60, n_servers=12, n_requests=3000,
+            t_max=30.0, bundle_cover=1.0, bundle_zipf=0.7, seed=seed))
+        pol = get_policy("akpc", params=params, env=env, t_cg=0.73,
+                         top_frac=1.0, cost_model="heterogeneous")
+        pol.bind(tr.n, tr.m)
+        model = get_cost_model("heterogeneous", env)
+        scheds.append(build_schedule(CliquePartition.singletons(tr.n), tr,
+                                     pol.on_window, pol.t_cg, model=model,
+                                     env=env))
+    spec0, statics = cost_spec(model, env)
+    dims = {k: max(schedule_dims(s)[k] for s in scheds)
+            for k in schedule_dims(scheds[0])}
+    scheds = [pad_schedule(s, dims) for s in scheds]
+    rows = [0, 2, 1, 2]
+    spec = {k: np.stack([spec0[k]] * len(rows)) for k in spec0}
+    E0, a0 = fresh_state_arrays(60, 12)
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        E = torch.from_numpy(np.stack([E0] * len(rows))).to(dev)
+        A = torch.from_numpy(np.stack([a0] * len(rows))).to(dev)
+        stats: dict = {}
+        n0 = seg_scan_step.launches
+        outs[dev.type] = run_schedules(
+            scheds, spec, statics, E, A, rows=rows, stats=stats,
+            check_syncs=dev.type == "cuda")
+        if dev.type == "cuda":
+            assert seg_scan_step.launches - n0 == stats["steps"] > 0
+    (Eg, Ag, accg), (Ec, Ac, accc) = outs["cuda"], outs["cpu"]
+    assert torch.equal(Eg[:, :60].cpu(), Ec[:, :60])
+    assert torch.equal(Ag[:, :60].cpu(), Ac[:, :60])
+    np.testing.assert_allclose(accg.cpu().numpy(), accc.numpy(), rtol=1e-12)

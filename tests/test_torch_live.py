@@ -326,7 +326,7 @@ def test_live_cgm_auto_routes_device():
         _policy(crm_matmul=lambda H: H.T @ H), trace.n, trace.m,
         device="cpu")._cgm
     # the port's state is dense only
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1, items 4-5"):
         _live(trace, layout="row_sharded")
 
 

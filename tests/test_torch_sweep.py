@@ -172,10 +172,14 @@ def test_sweep_matches_reference_all_policies(unit_traces, sized_traces,
     eng = SweepEngine(device="cpu")
     got = eng.run(port_pts)
     _check(RefSweepEngine(backend="numpy").run(ref_pts), got)
-    # a shareable policy's two alphas share a schedule; ttl never shares
+    # a shareable policy's two alphas share a schedule; ttl never shares;
+    # one scan a cohort: the shareable policies' schedules, and ttl's two
+    # (their step tensors add "nokeep")
     assert eng.last_n_schedules == len(SHAREABLE_POLICIES) + 2
-    assert sorted(g["lanes"] for g in eng.last_stats["groups"]) == \
-        [1, 1] + [2] * len(SHAREABLE_POLICIES)
+    assert sorted((g["lanes"], g["members"], g["schedules"])
+                  for g in eng.last_stats["groups"]) == \
+        [(2, 2, 2), (2 * len(SHAREABLE_POLICIES), len(SHAREABLE_POLICIES),
+                     len(SHAREABLE_POLICIES))]
     if hetero:
         serial = SweepEngine(backend="serial", device="cpu").run(port_pts)
         for a, b in zip(serial, got):
@@ -285,7 +289,9 @@ def test_policy_batch_size_as_serial(unit_traces, name):
                                for bs in (7, None) for sc in scen])
     eng = SweepEngine(device="cpu")
     got = eng.run(port_pts)
-    assert sorted(g["lanes"] for g in eng.last_stats["groups"]) == [2, 2]
+    # two schedules (batch 7 and the default), one cohort: one scan
+    assert [(g["lanes"], g["members"], g["schedules"])
+            for g in eng.last_stats["groups"]] == [(4, 2, 2)]
     _check(RefSweepEngine(backend="numpy").run(ref_pts), got)
     serial = SweepEngine(backend="serial", device="cpu").run(port_pts)
     for a, b in zip(serial, got):
@@ -308,11 +314,11 @@ def test_refusals(unit_traces):
     for backend in ("jax", "numpy", "tpu-magic"):
         with pytest.raises(ValueError, match="unknown sweep backend"):
             SweepEngine(backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
         SweepEngine(mesh=object(), device="cpu")
     for layout in ("bucketed", "row_sharded"):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 3"):
+                           match="ROADMAP queue 1, items 4-5"):
             SweepEngine(layout=layout, device="cpu")
     # ``learned`` was refused before it was ported; it now sweeps like a
     # serial run (its warm start: the TTL baseline's decisions)
