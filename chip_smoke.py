@@ -141,6 +141,20 @@
     ``generalized_per_request_ratio_check`` on a 1,500-request netflix
     trace under table1 and heterogeneous pricing stay <= 1 and equal a CPU
     run of the port;
+13d. ``figures``: the figure drivers of ``repro_torch.bench`` on the
+    card: ``fig8 --smoke`` (the mixed (n, m) grid under the bucketed
+    layout: at most one scan a bucket cohort, every point equal to its
+    serial card run at 1e-9); fig8's servers and items axes as a bucketed
+    grid under heterogeneous prices (per-server dt, 20,000 requests a
+    trace, ``akpc`` and ``no_packing``): one scan a cohort, one
+    ``seg_scan_step`` launch a live step a scan, every point equal to its
+    serial card run (state and costs), and the widest captured step (its
+    ``dt`` padded past the servers, per-lane rows) held bitwise against
+    the plain scan, twice, and timed beside its bound; the ``--smoke``
+    gates of ``fig9``, ``fig10``, ``sweep_bench`` (at 20,000 requests)
+    and ``replay_bench`` (a 10,000-request batch-1 head); ``table1``; and
+    the fig5 and fig6 grids on a 20,000-request head swept on the card and
+    equal to serial CPU runs at 1e-9;
 14. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
@@ -166,7 +180,20 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.bench import fig7, fig11, kernel_bench  # noqa: E402
+from repro_torch.bench import (  # noqa: E402
+    common as bench_common,
+    fig5,
+    fig6,
+    fig7,
+    fig8,
+    fig9,
+    fig10,
+    fig11,
+    kernel_bench,
+    replay_bench,
+    sweep_bench,
+    table1,
+)
 from repro_torch.bench.common import (  # noqa: E402
     PEAK_FP32,
     PEAK_TF32,
@@ -351,6 +378,13 @@ EXPERT_STEPS, EXPERT_CUT, EXPERT_HOT = 5000, 2500, 0.7
 #: top-8, wi / wg / wo of 1536 x 512 f16 each; ``src/repro/configs/
 #: granite_moe_3b_a800m.py``)
 GATHER_EXPERTS, GATHER_TOP_K, GATHER_ROW = 40, 8, (3, 1536, 512)
+#: the figures phase: requests of each trace of the bucketed
+#: heterogeneous grid and of the fig5 / fig6 heads, and the cuts of the
+#: sweep and replay benchmarks' smoke runs (printed when they run)
+FIG_HETERO_REQUESTS = 20_000
+FIG_HEAD = 20_000
+FIG_SWEEP_BENCH_REQUESTS = 20_000
+FIG_REPLAY_CAP = 10_000
 GATHER_STEPS = 400
 #: CUDA-graph calls of the expert gather (each copies tens of MB)
 GATHER_CALLS = 10
@@ -1170,12 +1204,16 @@ def same_point(a, b, tag) -> None:
         raise AssertionError(f"{tag}: {e}") from None
 
 
-def cohort_count(pts) -> int:
+def cohort_count(pts, layout=None) -> int:
     """The scans the reference's sweep makes for unsharded points outside
-    device-CGM super-groups: one a cohort key (state rows and columns,
-    const_dt, uses_sizes, step-tensor set, statics, caching charge), the
-    step-tensor set being fixed by const_dt, uses_sizes and whether the
-    policy has a keep-or-not hook (``src/repro/core/sweep.py:462-477``)."""
+    device-CGM super-groups: one a cohort key (state rows and columns
+    under ``layout``, const_dt, uses_sizes, step-tensor set, statics,
+    caching charge), the step-tensor set being fixed by const_dt,
+    uses_sizes and whether the policy has a keep-or-not hook
+    (``src/repro/core/sweep.py:462-477``)."""
+    from repro_torch.core.state_layout import StateLayout
+
+    lay = StateLayout.resolve(layout)
     keys = set()
     for p in pts:
         pol = get_policy(p.policy, **p.policy_kwargs)
@@ -1185,7 +1223,8 @@ def cohort_count(pts) -> int:
         model = get_cost_model(getattr(pol, "cost_model", "table1"), env)
         statics = cost_spec(model, env)[1]
         dt = np.asarray(model.dt())
-        keys.add((p.trace.n + 1, p.trace.m, bool((dt == dt[0]).all()),
+        keys.add((*lay.state_dims(p.trace.n, p.trace.m),
+                  bool((dt == dt[0]).all()),
                   bool(model.uses_sizes), hasattr(pol, "item_keep"),
                   statics, getattr(pol, "caching_charge", "requested")))
     return len(keys)
@@ -2304,6 +2343,199 @@ def expert_cache_phase(seed: int, dev) -> tuple[dict, dict]:
     return line, rec
 
 
+def same_entries(want: dict, got: dict, tag: str) -> None:
+    """Two runs' figure payload entries (``{method: {total, transfer,
+    caching, ...}}``): the same methods, floats at 1e-9, equal clique-size
+    histograms."""
+    if set(want) != set(got):
+        raise AssertionError(f"{tag}: methods {set(want) ^ set(got)}")
+    for m, w in want.items():
+        for f in ("total", "transfer", "caching"):
+            if not np.isclose(w[f], got[m][f], rtol=1e-9, atol=1e-9):
+                raise AssertionError(f"{tag} {m} {f}: {w[f]} != "
+                                     f"{got[m][f]}")
+        if w.get("clique_sizes") != got[m].get("clique_sizes"):
+            raise AssertionError(f"{tag} {m}: clique sizes differ")
+
+
+def fig8_hetero_points(n_requests: int) -> list:
+    """fig8's servers and items axes under heterogeneous pricing (fig10's
+    ``env_for`` at price sigma 1.0: per-server dt) and lognormal item
+    sizes, ``akpc`` and ``no_packing`` at each point."""
+    params = CostParams()
+    traces = ([(60, m) for m in fig8.SERVERS]
+              + [(n, 600) for n in fig8.ITEMS])
+    pts = []
+    for n, m in traces:
+        tr = synth_trace(SynthConfig(
+            kind="netflix", n_items=n, n_servers=m, n_requests=n_requests,
+            t_max=6.0 * n_requests / 100_000.0, bundle_cover=1.0,
+            bundle_zipf=0.7, server_affinity=2, seed=0,
+            size_dist="lognormal"))
+        env = CacheEnvironment.resolve(env_for(tr, params, PRICE_SIGMA), tr,
+                                       params)
+        t_cg = t_cg_for(tr, params, env=env, cost_model="heterogeneous")
+        for name in ("akpc", "no_packing"):
+            kw = dict(t_cg=t_cg, top_frac=1.0) if name == "akpc" else {}
+            pts.append(SweepPoint(name, tr, dict(
+                params=params, env=env, cost_model="heterogeneous", **kw),
+                tag=f"n={n}/m={m}/{name}"))
+    return pts
+
+
+def figures_phase(out_dir) -> tuple[dict, dict]:
+    """The figure drivers on the card (``repro_torch.bench``): fig8's
+    smoke gate under the bucketed layout, fig8's axes as a bucketed
+    heterogeneous grid (the scan step with padded columns), the smoke
+    gates of fig9, fig10, the sweep and the replay benchmarks, table1,
+    and fig5 / fig6 on a head against serial CPU runs.  Returns the
+    ``figures`` record and the bucketed step's kernel record."""
+    report: list = []
+    line: dict = {"launches": {}}
+    bench_common.RESULTS_DIR = str(out_dir / "results")
+
+    def counts() -> dict:
+        return {k: fn.launches for k, fn in KERNELS.items()}
+
+    # -- fig8 --smoke: one scan a bucket cohort, every point == serial ------
+    grid, labels = fig8.build_grid(smoke=True)
+    reset_launches()
+    torch.cuda.synchronize()
+    res, stats = fig8.run(grid)
+    launches = counts()
+    scans = len(stats["groups"])
+    for k in ("packed_lookup", "crm_update", "clique_pair_edges"):
+        if launches[k] <= 0:
+            raise AssertionError(f"figures fig8: kernel {k} never launched")
+    if any(launches[k] for k in (*SEG_KERNELS, STEP)):
+        raise AssertionError("figures fig8: a scan kernel launched at a "
+                             "uniform dt")
+    fails = fig8.smoke_gate(grid, labels, res, scans)
+    if fails:
+        raise AssertionError("figures fig8 --smoke: " + "; ".join(fails))
+    line["fig8_smoke"] = {
+        "points": len(grid), "cohorts": fig8.n_cohorts(grid),
+        "scans": scans, "lanes": [g["lanes"] for g in stats["groups"]],
+        "scan_s": [g["scan_s"] for g in stats["groups"]],
+        "sweep_wall_s": stats["wall"]}
+    line["launches"]["fig8 smoke"] = launches
+
+    # -- fig8's axes, bucketed, per-server dt -------------------------------
+    pts = fig8_hetero_points(FIG_HETERO_REQUESTS)
+    print(f"cut: figures fig8-bucketed-hetero at {FIG_HETERO_REQUESTS} "
+          "requests a trace (fig8's axes; n and m unchanged)", flush=True)
+    want_scans = cohort_count(pts, fig8.LAYOUT)
+    reset_launches()
+    capture.INPUTS = {}
+    torch.cuda.synchronize()
+    eng = SweepEngine(layout=fig8.LAYOUT)
+    swept = eng.run(pts)
+    launches = counts()
+    captured = capture.INPUTS[STEP][1]
+    capture.INPUTS = None
+    groups = eng.last_stats["groups"]
+    if len(groups) != want_scans:
+        raise AssertionError(f"figures hetero: {len(groups)} scans for "
+                             f"{want_scans} cohorts")
+    live = sum(g["steps"] for g in groups)
+    if launches[STEP] != live or any(launches[k] for k in SEG_KERNELS):
+        raise AssertionError(
+            f"figures hetero: {launches[STEP]} seg_scan_step launches for "
+            f"{live} live steps")
+    for k in ("packed_lookup", "crm_update", "clique_pair_edges"):
+        if launches[k] <= 0:
+            raise AssertionError(f"figures hetero: kernel {k} never "
+                                 "launched")
+    ser = SweepEngine(backend="serial")
+    serial = ser.run(pts)
+    assert_parity(pts, serial, swept)
+    for p, a, b in zip(pts, serial, swept):
+        same_point(a, b, p.tag)
+        if not (np.isfinite(b.total) and b.total > 0.0):
+            raise AssertionError(f"figures hetero {p.tag}: {b.total}")
+    m_max = max(p.trace.m for p in pts
+                if fig8.LAYOUT.state_cols(p.trace.m) == captured[6].shape[1])
+    if captured[6].shape[1] <= m_max:
+        raise AssertionError("figures hetero: the captured step's dt has "
+                             "no padded column")
+    step_rec = rows_step_record(
+        report, captured, "captured fig8-bucketed-hetero step (padded "
+        "columns)") if len(captured) == 8 else None
+    if step_rec is None:
+        raise AssertionError("figures hetero: the widest step has no "
+                             "per-lane rows")
+    step_rec["shape"]["servers"] = m_max
+    line["fig8_bucketed_hetero"] = {
+        "requests": FIG_HETERO_REQUESTS, "points": len(pts),
+        "expected_scans": want_scans, **scan_lines(groups),
+        "live_steps": live, "seg_scan_launches": launches[STEP],
+        "sweep_wall_s": eng.last_wall, "serial_wall_s": ser.last_wall,
+        "state_dims": sorted({fig8.LAYOUT.state_dims(p.trace.n, p.trace.m)
+                              for p in pts})}
+    line["launches"]["fig8-bucketed-hetero"] = launches
+
+    # -- the drivers' smoke gates -------------------------------------------
+    env_cut = {"REPRO_SWEEP_BENCH_REQUESTS": str(FIG_SWEEP_BENCH_REQUESTS),
+               "REPRO_REPLAY_SCALAR_CAP": str(FIG_REPLAY_CAP)}
+    print(f"cut: figures sweep_bench --smoke at {FIG_SWEEP_BENCH_REQUESTS} "
+          f"requests (60,000 in the driver); replay_bench --smoke with a "
+          f"{FIG_REPLAY_CAP}-request batch-1 head (20,000)", flush=True)
+    saved = {k: os.environ.get(k) for k in env_cut}
+    os.environ.update(env_cut)
+    try:
+        for name, mod in (("fig9", fig9), ("fig10", fig10),
+                          ("sweep_bench", sweep_bench),
+                          ("replay_bench", replay_bench)):
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = mod.main(["--smoke"])
+            line.setdefault("smoke_s", {})[name] = time.perf_counter() - t0
+            line["launches"][f"{name} smoke"] = counts()
+            if rc != 0:
+                raise AssertionError(f"figures: {name} --smoke exited {rc}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if line["launches"]["fig10 smoke"][STEP] <= 0:
+        raise AssertionError("figures: fig10 --smoke launched no scan step")
+    if table1.main([]) != 0:
+        raise AssertionError("figures: table1 failed")
+
+    # -- fig5 / fig6 on a head, the card's sweep == serial CPU runs ---------
+    for name, mod in (("fig5", fig5), ("fig6", fig6)):
+        g = mod.grid(FIG_HEAD)
+        if name == "fig6":
+            g, keys = g
+        reset_launches()
+        torch.cuda.synchronize()
+        st: dict = {}
+        got = bench_common.run_method_grid(g, stats=st)
+        line["launches"][f"{name} head"] = counts()
+        t0 = time.perf_counter()
+        want = bench_common.run_method_grid(g, backend="serial",
+                                            device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for i, (w, r) in enumerate(zip(want, got)):
+            same_entries(w, r, f"figures {name} entry {i}")
+        payload = (mod.payload_rows(got)[0] if name == "fig5"
+                   else mod.payload_rows(keys, got)[0])
+        rec = {"requests": FIG_HEAD, "entries": len(g),
+               "schedules": st["schedules"], "scans": len(st["groups"]),
+               "sweep_wall_s": st["wall"], "cpu_serial_s": cpu_s}
+        if name == "fig5":
+            rec["relative"] = {k: payload[k]["relative"] for k in fig5.KINDS}
+            rec["akpc_vs_packcache_saving"] = {
+                k: 1 - got[i]["akpc"]["total"] / got[i]["packcache"]["total"]
+                for i, k in enumerate(fig5.KINDS)}
+        line[f"{name}_head"] = rec
+    print("kernels_figures " + json.dumps(report), flush=True)
+    print("figures " + json.dumps(line), flush=True)
+    return line, step_rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2477,6 +2709,9 @@ def main() -> int:
     t0 = time.perf_counter()
     expert, gather_rec = expert_cache_phase(args.seed, dev)
     phase("expert_cache", t0)
+    t0 = time.perf_counter()
+    figures, fig_step_rec = figures_phase(out_dir)
+    phase("figures", t0)
     consumers = {
         **{f"learned {cm}": line["launches"] for cm, line in learned.items()},
         "learned heterogeneous live":
@@ -2578,6 +2813,14 @@ def main() -> int:
         for key, counts in consumers.items():
             if counts[counter]:
                 by_config.setdefault(key, {})["launches"] = counts[counter]
+        for key, counts in figures["launches"].items():
+            if counts[counter]:
+                by_config.setdefault(f"figures {key}", {})["launches"] = \
+                    counts[counter]
+        if name in SEG_KERNELS:
+            by_config["figures fig8-bucketed-hetero step, captured"] = {
+                **fig_step_rec, "launches":
+                    figures["launches"]["fig8-bucketed-hetero"][STEP]}
         if name == "packed_lookup":
             by_config["expert_cache gather (granite-moe expert rows)"] = \
                 gather_rec

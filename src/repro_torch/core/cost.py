@@ -277,6 +277,36 @@ class CostModel:
         """(E,) storage rent per unit time of each event's charged group."""
         raise NotImplementedError
 
+    # -- scalar conveniences (Table I) ---------------------------------------
+    def transfer_cost(self, p: int, *, packed: bool, sizes=None,
+                      server: int = 0) -> float:
+        """Transfer cost of ``p`` items: one packed event vs p singles.
+        ``sizes``: optional per-item sizes (p,); defaults to unit sizes."""
+        if p <= 0:
+            return 0.0
+        s = np.ones(p) if sizes is None else np.asarray(sizes, np.float64)
+        if s.shape != (p,):
+            raise ValueError(f"sizes must have shape ({p},), got {s.shape}")
+        if packed:
+            return float(self.transfer_cost_batch(
+                np.array([p], dtype=np.int64),
+                np.array([float(s.sum())]),
+                np.array([server], dtype=np.int64))[0])
+        return float(self.transfer_cost_batch(
+            np.ones(p, dtype=np.int64), s,
+            np.full(p, server, dtype=np.int64)).sum())
+
+    def caching_cost(self, n_items: int, duration: float, sizes=None,
+                     server: int = 0) -> float:
+        """Rent of keeping ``n_items`` cached for ``duration`` time."""
+        if duration <= 0.0 or n_items <= 0:
+            return 0.0
+        s = float(n_items) if sizes is None else float(np.asarray(sizes).sum())
+        rate = self.caching_rate(
+            np.array([n_items], dtype=np.int64), np.array([s]),
+            np.array([server], dtype=np.int64))[0]
+        return float(rate * duration)
+
 
 _COST_MODELS: dict[str, type] = {}
 

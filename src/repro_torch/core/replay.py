@@ -224,22 +224,32 @@ def _lane(a, idx):
     return a[idx] if a.dim() == 1 else a.gather(1, idx)
 
 
-def fresh_state_arrays(n: int, m: int) -> tuple:
-    """Empty host state in the device layout: ``E`` (n+1, m) float64 zeros
-    and ``anchor`` (n+1,) int64 -1, the last row being the dump row."""
-    rows, cols = StateLayout.resolve(None).state_dims(n, m)
+def fresh_state_arrays(n: int, m: int, layout=None) -> tuple:
+    """Empty host state in the device layout: ``E`` (rows, cols) float64
+    zeros and ``anchor`` (rows,) int64 -1, the last row being the dump row
+    (dense: (n+1, m))."""
+    rows, cols = StateLayout.resolve(layout).state_dims(n, m)
     return np.zeros((rows, cols), np.float64), np.full(rows, -1, np.int64)
 
 
-def state_to_device(state: CacheState, n: int, device) -> tuple:
-    """Host ``CacheState`` -> dense device arrays: ``E`` (n+1, m) float64,
-    ``anchor`` (n+1,) int64, the last row being the dump row."""
-    E0, a0 = fresh_state_arrays(n, state.m)
+def _state_arrays(state: CacheState, rows: int, cols: int, device) -> tuple:
+    """Host ``CacheState`` -> (rows, cols) device arrays: the live (k, m)
+    block in the top-left corner, padded rows inert, padded columns zero."""
+    E0 = np.zeros((rows, cols), np.float64)
+    a0 = np.full(rows, -1, np.int64)
     k = state.partition.k
-    E0[:k] = state.E
+    E0[:k, :state.m] = state.E
     a0[:k] = state.anchor
     return (torch.as_tensor(E0, device=device),
             torch.as_tensor(a0, device=device))
+
+
+def state_to_device(state: CacheState, n: int, device, layout=None) -> tuple:
+    """Host ``CacheState`` -> device arrays in ``layout``'s geometry: ``E``
+    float64, ``anchor`` int64, the last row being the dump row (dense:
+    (n+1, m))."""
+    rows, cols = StateLayout.resolve(layout).state_dims(n, state.m)
+    return _state_arrays(state, rows, cols, device)
 
 
 def apply_acc(costs: CostBreakdown, schedule, acc: np.ndarray) -> CostBreakdown:
@@ -604,8 +614,10 @@ def run_schedules(schedules, spec: dict, statics: tuple, E: torch.Tensor,
     schedule of each lane (None: lane i replays ``schedules[i]``).  A lane
     is never a copy of a schedule.  ``spec`` / ``E`` / ``anchor`` carry the
     leading S axis.  The schedules must share padded dims
-    (:func:`~repro_torch.core.schedule.pad_schedule`), ``(n, m)``,
-    ``const_dt`` and their set of step tensors.
+    (:func:`~repro_torch.core.schedule.pad_schedule`), state geometry
+    (``state_rows`` / ``state_cols``: under a bucketed layout, schedules of
+    different (n, m) in one bucket), ``const_dt`` and their set of step
+    tensors.
 
     The loop runs the union of the lanes' live steps.  A lane with no
     events at a step runs padding events, and a lane with no install at an
@@ -634,13 +646,15 @@ def run_schedules(schedules, spec: dict, statics: tuple, E: torch.Tensor,
         raise ValueError(f"run_schedules: lane rows must lie in [0, {G}), "
                          f"got {rows.tolist()}")
     s0 = schedules[0]
+    geom = (s0.state_rows, s0.state_cols)
     for s in schedules[1:]:
-        if (s.const_dt != s0.const_dt or (s.n, s.m) != (s0.n, s0.m)
+        if (s.const_dt != s0.const_dt
+                or (s.state_rows, s.state_cols) != geom
                 or schedule_dims(s) != schedule_dims(s0)
                 or set(s.xs) != set(s0.xs)):
             raise ValueError(
-                "run_schedules needs schedules of one (n, m), const_dt, "
-                "padded dims and step-tensor set (pad_schedule)")
+                "run_schedules needs schedules of one state geometry, "
+                "const_dt, padded dims and step-tensor set (pad_schedule)")
     if G == 1:
         return run_schedule(s0, spec, statics, E, anchor, charge=charge,
                             use_kernels=use_kernels, stats=stats,
@@ -717,7 +731,8 @@ def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,
                  charge="requested", use_kernels: bool = True,
                  record: bool = False) -> tuple:
     """Replay under each pricing spec of ``specs``, the lanes of one scan,
-    every lane starting from ``state`` (a fresh state when None).
+    every lane starting from ``state`` (a fresh state when None), in the
+    schedules' state geometry (their ``state_rows`` x ``state_cols``).
     ``schedule`` is the one schedule every lane replays (a laned
     :func:`run_schedule`), or a list of distinct schedules with ``rows``
     naming each lane's (:func:`run_schedules`).  Lane s's accumulator is
@@ -735,7 +750,7 @@ def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,
         state = CacheState.fresh(s0.partition0, s0.m)
     stats: dict = {}
     with _span("host.scan"):
-        E0, a0 = state_to_device(state, s0.n, device)
+        E0, a0 = _state_arrays(state, s0.state_rows, s0.state_cols, device)
         spec = {k: np.stack([sp[k] for sp in specs]) for k in specs[0]}
         rec = (torch.zeros((s0.nb, S, 3), dtype=torch.float64, device=device)
                if record else None)
@@ -772,7 +787,10 @@ class TorchReplayEngine:
     Wraps (or builds) a :class:`~repro_torch.core.engine.ReplayEngine` that
     holds configuration, cache state and costs; ``replay`` runs the trace
     on ``device`` and syncs state + costs back, so the host state after a
-    replay equals what the numpy engine of ``repro`` produces.
+    replay equals what the numpy engine of ``repro`` produces.  ``layout``
+    sets the host-schedule replay's state geometry (dense or bucketed: the
+    per-server spec arrays pad to its columns); the device clique
+    generation keeps a dense-n carry of its own under either.
     """
 
     def __init__(self, *args, engine: ReplayEngine | None = None,
@@ -781,11 +799,16 @@ class TorchReplayEngine:
         from ..kernels.packed_lookup import CliqueLookup
 
         self.device = resolve_device(device)
-        self.layout = StateLayout.resolve(layout)   # dense only
+        self.layout = StateLayout.resolve(layout)
         self.engine = engine if engine is not None else ReplayEngine(
             *args, **kwargs)
         self._spec, self._statics = cost_spec(
             self.engine.model, self.engine.env)
+        #: the spec at the layout's columns (the host-schedule replay's;
+        #: padded columns repeat the last server and are never gathered)
+        ncol = self.layout.state_cols(self.engine.env.m)
+        self._state_spec = (self._spec if ncol == self.engine.env.m
+                            else pad_spec_cols(self._spec, ncol))
         #: the host schedule's item -> clique lookup on this device
         self.lookup = CliqueLookup(self.device)
         self.last_schedule = None
@@ -830,7 +853,8 @@ class TorchReplayEngine:
             pol = getattr(clique_generator, "__self__", None)
             keep_fn = getattr(pol, "item_keep", None)
             if pol is not None and not record and wants_device_cgm(
-                    pol, trace, eng.model):
+                    pol, trace, eng.model) and \
+                    self.layout.supports_device_cgm(eng.env.n, eng.env.m):
                 return replay_cgm(
                     self, pol, trace, t_cg=t_cg, batch_size=batch_size,
                     next_cg0=next_cg0, win_prefix=win_prefix,
@@ -851,7 +875,7 @@ class TorchReplayEngine:
         schedule = pad_schedule(schedule, dims)
         self.last_schedule = schedule
         (eng.state,), scan = replay_lanes(
-            schedule, [self._spec], self._statics, [eng.costs],
+            schedule, [self._state_spec], self._statics, [eng.costs],
             device=self.device, state=eng.state, charge=eng.caching_charge,
             use_kernels=use_kernels, record=record)
         if record:
@@ -868,13 +892,15 @@ class TorchReplayEngine:
 
 
 def run_policy_torch(policy, trace, *, device=None, batch_size=None,
-                     progress=None, use_kernels: bool = True):
+                     progress=None, use_kernels: bool = True, layout=None):
     """Offline driver on the device: the counterpart of ``run_policy_jax``.
 
     Binds the policy, resolves the environment, installs an offline
     policy's initial partition, replays the trace in T_CG windows (clique
     generation only when the policy has a ``t_cg``), and returns a
-    :class:`~repro_torch.core.policy.RunResult`.
+    :class:`~repro_torch.core.policy.RunResult`.  ``layout`` is the device
+    state layout (:class:`~repro_torch.core.state_layout.StateLayout`, a
+    kind string, or None for dense).
     """
     from .policy import RunResult, get_policy
 
@@ -893,6 +919,7 @@ def run_policy_torch(policy, trace, *, device=None, batch_size=None,
         env=env,
         cost_model=getattr(policy, "cost_model", "table1"),
         device=device,
+        layout=layout,
     )
     part0 = policy.initial_partition(trace)
     if part0 is not None:

@@ -42,10 +42,6 @@ from .replay import TorchReplayEngine
 from .state_layout import StateLayout
 from ..traces.loader import Trace
 
-#: layout tags a snapshot may carry: the host state is dense under every
-#: layout of ``repro``, so each restores into the port's dense session
-SNAPSHOT_LAYOUTS = ("dense", "bucketed", "row_sharded")
-
 
 def _tag_to_array(tag: str) -> np.ndarray:
     """A string tag as a uint8 byte array (snapshots hold numerics only)."""
@@ -106,7 +102,8 @@ class CacheSession:
     this session's catalog.  ``trace`` is needed only by offline policies
     (``dp_greedy`` mines its fixed pairs from it) and, as in the offline
     replay (``run_policy``), resolves a sized trace's environment.
-    ``layout`` is the device state layout (dense only in the port).
+    ``layout`` is the device state layout (dense or bucketed); the host
+    state is dense under either, so a snapshot restores across them.
     """
 
     def __init__(self, policy: BasePolicy | str, n: int, m: int, *,
@@ -287,8 +284,8 @@ class CacheSession:
                 # a restore must price under the same scenario
                 "cost_model": _tag_to_array(self.engine.model.name),
                 "model_config": self.engine.model.config_array(),
-                "layout": _tag_to_array(self.layout.kind),
-                "layout_shards": np.int64(1),
+                "layout": _tag_to_array(self.layout.tag),
+                "layout_shards": np.int64(self.layout.row_shards),
                 "env": {
                     "lam_j": arr(env.lam_j),
                     "mu_j": arr(env.mu_j),
@@ -325,11 +322,10 @@ class CacheSession:
                 raise ValueError(
                     f"snapshot was taken under cost model {want!r}, session "
                     f"runs {have!r}")
-        if "layout" in eng:
-            tag = _tag_from_array(eng["layout"])
-            if tag not in SNAPSHOT_LAYOUTS:
-                raise ValueError(f"snapshot has an unknown state layout "
-                                 f"{tag!r}")
+        if "layout" in eng:       # pre-layout snapshots restore as dense
+            self.layout.check_restore(
+                _tag_from_array(eng["layout"]),
+                int(np.asarray(eng.get("layout_shards", 1)).item()))
         env = self.engine.env
         snap_env = eng.get("env", {})
         if "cost_mode" in snap_env and \

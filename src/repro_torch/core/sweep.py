@@ -43,9 +43,14 @@ S_sh + j`` scenario li on shard j, in one ``run_schedules`` call, and
 each scenario's shards merge into one RunResult with ``shard_stats``
 (:func:`_merge_shard_results`), as the reference does.
 
-The mesh and the ``bucketed`` / ``row_sharded`` layouts are refused
-(ROADMAP queue 1, items 4-5), and so is a cost model without a device
-formula: the port never falls back to another backend or to the CPU.
+Under a ``bucketed`` :class:`~repro_torch.core.state_layout.StateLayout`
+the schedules are built at the layout's padded state dims, so points of
+different (n, m) whose dims round to the same bucket are one cohort and
+replay as the lanes of one scan (``last_stats["groups"]``: one record a
+scan); the device-CGM super-groups keep their dense-n carry.  The mesh
+(and with it the ``row_sharded`` layout) is refused (ROADMAP queue 1,
+item 5), and so is a cost model without a device formula: the port never
+falls back to another backend or to the CPU.
 """
 from __future__ import annotations
 

@@ -49,8 +49,11 @@ replayed the same requests itself; :meth:`LiveServingEngine.snapshot` /
 both directions (a live snapshot taken mid-stream carries the requests
 not yet dispatched under ``"live"``).
 
-Only the dense state layout is ported.  ``device=None`` means CUDA, which
-must be present; ``device="cpu"`` runs the plain versions on the CPU.
+The carry of the host-schedule path takes the session's state layout
+(dense or bucketed; the ratchet's install dims grow with its rows); the
+device CGM's carry is dense-n under either.  ``device=None`` means CUDA,
+which must be present; ``device="cpu"`` runs the plain versions on the
+CPU.
 """
 from __future__ import annotations
 
@@ -134,7 +137,7 @@ class LiveServingEngine:
     ----------
     policy, n, m, env, batch_size, layout, device : as for
         :class:`~repro_torch.core.session.CacheSession` (``layout``: dense
-        only).
+        or bucketed).
     chunk_size : requests a dispatched chunk; submissions buffer until a
         chunk fills, and :meth:`drain` dispatches the ragged remainder.
     ring : chunks in flight before a submit waits on the oldest.
@@ -192,7 +195,7 @@ class LiveServingEngine:
                 self.policy,
                 Trace(times=np.zeros(0), servers=np.zeros(0, np.int64),
                       items=np.zeros((0, 1), np.int64), n=n, m=m),
-                eng.model)
+                eng.model) and self.layout.supports_device_cgm(n, m)
             if cgm == "force" and not eligible:
                 raise ValueError(
                     "cgm='force': the device clique generation does not "
@@ -428,12 +431,13 @@ class LiveServingEngine:
         if self._E is not None:
             return
         eng = self.session.engine
-        E0, a0 = state_to_device(eng.state, self.n, "cpu")
+        E0, a0 = state_to_device(eng.state, self.n, "cpu", self.layout)
         self._E = self._upload(E0)
         self._anchor = self._upload(a0)
         self._acc = self._upload(torch.from_numpy(self._seed()))
+        spec = self.session.replayer._state_spec
         self._spec_d = {k: self._upload(v) for k, v in
-                        lane_spec_to_device(self._spec, "cpu", False).items()}
+                        lane_spec_to_device(spec, "cpu", False).items()}
 
     def _fix_dims(self, dims: dict) -> None:
         """Fix (or ratchet) the padded chunk shape with headroom."""

@@ -1123,3 +1123,74 @@ def test_run_schedules_on_card_makes_no_sync(cuda_device):
     assert torch.equal(Eg[:, :60].cpu(), Ec[:, :60])
     assert torch.equal(Ag[:, :60].cpu(), Ac[:, :60])
     np.testing.assert_allclose(accg.cpu().numpy(), accc.numpy(), rtol=1e-12)
+
+
+def _bucketed_hetero_points(n_requests=2000):
+    """fig8-style points of three (n, m) shapes under heterogeneous
+    prices (per-server dt) and lognormal sizes, AKPC and no_packing."""
+    from repro_torch.bench.sweep_bench import env_for
+
+    pts = []
+    for seed, (n, m) in enumerate(((60, 20), (50, 24), (100, 40))):
+        tr = synth_trace(SynthConfig(
+            kind="netflix", n_items=n, n_servers=m, n_requests=n_requests,
+            t_max=20.0, bundle_cover=1.0, bundle_zipf=0.7, seed=seed,
+            size_dist="lognormal"))
+        env = env_for(tr, CostParams(), 1.0)
+        for name in ("akpc", "no_packing"):
+            kw = dict(t_cg=0.9, top_frac=1.0) if name == "akpc" else {}
+            pts.append(SweepPoint(name, tr, dict(
+                params=CostParams(), env=env, cost_model="heterogeneous",
+                **kw), tag=f"{n}x{m}/{name}"))
+    return pts
+
+
+def test_bucketed_mixed_sweep_on_card_equals_serial_card_runs(cuda_device):
+    """A mixed-(n, m) sweep under the bucketed layout on the card: one
+    scan a bucket cohort, one ``seg_scan_step`` launch a live step a
+    scan, every point equal to its serial card run (dense): state float
+    for float, costs at 1e-9."""
+    from repro_torch.core.state_layout import StateLayout
+
+    lay = StateLayout(kind="bucketed", row_bucket=64, col_bucket=32)
+    pts = _bucketed_hetero_points()
+    cohorts = {lay.state_dims(p.trace.n, p.trace.m) for p in pts}
+    assert len(cohorts) == 2
+    n0 = seg_scan_step.launches
+    eng = SweepEngine(layout=lay)
+    got = eng.run(pts)
+    groups = eng.last_stats["groups"]
+    assert len(groups) == len(cohorts)
+    assert seg_scan_step.launches - n0 == sum(g["steps"] for g in groups)
+    ser = SweepEngine(backend="serial").run(pts)
+    for p, a, b in zip(pts, ser, got):
+        assert np.array_equal(a.state.partition.clique_of,
+                              b.state.partition.clique_of), p.tag
+        assert np.array_equal(a.state.E, b.state.E), p.tag
+        assert np.array_equal(a.state.anchor, b.state.anchor), p.tag
+        assert a.costs.n_misses == b.costs.n_misses, p.tag
+        assert np.isclose(a.total, b.total, rtol=1e-9, atol=0.0), p.tag
+
+
+def test_bucketed_scan_step_equals_plain(cuda_device):
+    """The scan step captured from a bucketed sweep (``dt`` padded past
+    the servers, per-lane event rows) is bitwise its plain version, on two
+    calls."""
+    from repro_torch.core.state_layout import StateLayout
+    from repro_torch.kernels import capture
+
+    lay = StateLayout(kind="bucketed", row_bucket=64, col_bucket=32)
+    pts = _bucketed_hetero_points()
+    capture.INPUTS = {}
+    try:
+        SweepEngine(layout=lay).run(pts)
+        args = capture.INPUTS["seg_scan_step"][1]
+    finally:
+        capture.INPUTS = None
+    # both cohorts' columns pad past their servers (24 -> 32, 40 -> 64)
+    assert args[6].shape[1] in (32, 64) and len(args) == 8
+    want = seg_scan_step_plain(*args)
+    for _ in range(2):
+        got = seg_scan_step(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

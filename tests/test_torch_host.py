@@ -150,11 +150,15 @@ def test_state_layout_dense_only():
     lay = StateLayout.resolve(None)
     assert lay.state_dims(10, 3) == (11, 3) and lay.dump_row(10) == 10
     assert lay.supports_device_cgm(10, 3)
-    for kind in ("bucketed", "row_sharded"):
-        with pytest.raises(NotImplementedError):
-            StateLayout.resolve(kind)
-    with pytest.raises(NotImplementedError):
-        TorchReplayEngine(5, 2, device="cpu", layout="bucketed")
+    # the bucketed layout is ported; row_sharded waits for the mesh
+    assert StateLayout.resolve("bucketed").state_dims(10, 3) == (1025, 256)
+    assert TorchReplayEngine(5, 2, device="cpu",
+                             layout="bucketed").layout.kind == "bucketed"
+    for make in (lambda: StateLayout.resolve("row_sharded"),
+                 lambda: TorchReplayEngine(5, 2, device="cpu",
+                                           layout="row_sharded")):
+        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+            make()
 
 
 def test_install_partition_equal():
