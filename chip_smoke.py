@@ -155,6 +155,20 @@
     and ``replay_bench`` (a 10,000-request batch-1 head); ``table1``; and
     the fig5 and fig6 grids on a 20,000-request head swept on the card and
     equal to serial CPU runs at 1e-9;
+13e. ``mesh``: the ``row_sharded`` state layout on logical meshes of
+    cuda:0 (``make_sweep_mesh(devices=["cuda:0"] * 4)``): a
+    200,000-request head of ``hetero-catalog-10k`` with ``akpc`` (the host
+    schedule: per-server dt, so ``seg_scan_step`` once a live step and the
+    host clique generation's kernels) over 4 row blocks, bit for bit the
+    dense card run (state and costs) and its 5,000-request head equal to a
+    CPU run on a logical CPU mesh at 1e-9; ``no_packing`` under table1 on
+    a synthetic ``spotify`` catalog of 1,000,000 items x 600 servers
+    (1,000,000 requests; a 4.8 GB dense ``E``, 1.2 GB a block) over 4 row
+    blocks, bit for bit the dense card run, with the per-device state
+    bytes, the peak device memory and walls of both runs and the routed
+    block accesses a step; and fig10's grid on a 100,000-request head
+    swept on a 2 x 2 ("scenario", "state_row") mesh, every point equal to
+    the mesh-less sweep (state float for float, costs at 1e-9);
 14. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
@@ -239,6 +253,8 @@ from repro_torch.core.replay import (  # noqa: E402
     run_schedule,
     state_to_device,
 )
+from repro_torch.core.state_layout import StateLayout  # noqa: E402
+from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
 from repro_torch.kernels.merge_step import (  # noqa: E402
     merge_density_lanes_plain,
 )
@@ -388,6 +404,14 @@ FIG_REPLAY_CAP = 10_000
 GATHER_STEPS = 400
 #: CUDA-graph calls of the expert gather (each copies tens of MB)
 GATHER_CALLS = 10
+#: the mesh phase: row blocks of the logical mesh, the hetero-catalog-10k
+#: head, the 10^6-item catalog (items, servers, requests) and the fig10
+#: head swept on a (devices, state_rows) = (4, 2) mesh: 2 x 2
+MESH_SHARDS = 4
+MESH_HEAD = 200_000
+MESH_BIG = (1_000_000, 600, 1_000_000)
+MESH_FIG10_REQUESTS = 100_000
+MESH_SWEEP = (4, 2)
 
 
 def make_trace(config: str, n_requests: int, seed: int):
@@ -2536,6 +2560,163 @@ def figures_phase(out_dir) -> tuple[dict, dict]:
     return line, step_rec
 
 
+def logical_mesh(n_dev: int, state_rows: int, device: str = "cuda:0"):
+    """A mesh of ``n_dev`` logical shards of one device."""
+    return make_sweep_mesh(n_dev, state_rows, devices=[device] * n_dev)
+
+
+def same_bits(a, b, tag: str) -> None:
+    """Equal state and bit-for-bit equal costs of two runs."""
+    same_point(a, b, tag)
+    if a.costs.as_dict() != b.costs.as_dict():
+        raise AssertionError(f"{tag}: costs differ: {a.costs.as_dict()} "
+                             f"!= {b.costs.as_dict()}")
+
+
+def sharded_record(res, lay, trace) -> dict:
+    st = res.loop_stats
+    if (st.get("path") != "host_schedule"
+            or st.get("shards") != lay.row_shards):
+        raise AssertionError(f"the row-sharded run took {st.get('path')} "
+                             f"over {st.get('shards')} block(s)")
+    return {"n": trace.n, "m": trace.m, "requests": trace.n_requests,
+            "shards": st["shards"], "steps": st["steps"],
+            "state_rows": lay.state_rows(trace.n),
+            "state_bytes_per_device": lay.state_bytes_per_device(
+                trace.n, trace.m),
+            "dense_state_bytes": StateLayout().state_bytes(trace.n, trace.m),
+            "block_ops": st["block_ops"],
+            "block_ops_per_step": st["block_ops"] / max(1, st["steps"]),
+            "device_copies_per_step":
+                st["device_copies"] / max(1, st["steps"]),
+            "scan_s": st["scan_s"], "schedule_s": st["schedule_s"],
+            "total_cost": res.total}
+
+
+def mesh_phase(catalog, seed: int) -> dict:
+    """The row-sharded layout and the sweep mesh on logical meshes of
+    cuda:0: the hetero-catalog-10k head (host schedule, per-server dt),
+    the 10^6-item catalog, fig10's grid on a 2 x 2 mesh.  Each run is held
+    against the dense (or mesh-less) card run."""
+    params = CostParams()
+    mesh = logical_mesh(MESH_SHARDS, MESH_SHARDS)
+    lay = StateLayout(kind="row_sharded", mesh=mesh)
+    line: dict = {"mesh": mesh.shape, "physical_devices":
+                  mesh.physical_devices, "launches": {}}
+
+    def counts() -> dict:
+        return {k: fn.launches for k, fn in KERNELS.items()}
+
+    # -- hetero-catalog-10k akpc on a head: 4 row blocks == dense ---------
+    head = catalog.slice(0, min(MESH_HEAD, catalog.n_requests))
+    env = env_for(head, params, PRICE_SIGMA)
+    t_cg = t_cg_for(head, params, env=env, cost_model="heterogeneous")
+    reset_launches()
+    torch.cuda.synchronize()
+    res = run_policy(host_policy("akpc", t_cg, env, "heterogeneous"), head,
+                     layout=lay)
+    launches = counts()
+    rec = sharded_record(res, lay, head)
+    for k in ("packed_lookup", "crm_update", "clique_pair_edges", STEP):
+        if launches[k] <= 0:
+            raise AssertionError(f"mesh hetero-catalog-10k: kernel {k} "
+                                 "never launched")
+    if launches[STEP] != rec["steps"] or any(launches[k]
+                                             for k in SEG_KERNELS):
+        raise AssertionError(
+            f"mesh hetero-catalog-10k: {launches[STEP]} seg_scan_step "
+            f"launches for {rec['steps']} steps")
+    line["launches"]["hetero-catalog-10k row_sharded"] = launches
+    dense = run_policy(host_policy("akpc", t_cg, env, "heterogeneous"),
+                       head)
+    same_bits(dense, res, "mesh hetero-catalog-10k dense")
+    cpu_head = head.slice(0, min(HEAD["hetero-catalog-10k"],
+                                 head.n_requests))
+    env_c = env_for(cpu_head, params, PRICE_SIGMA)
+    t_c = t_cg_for(cpu_head, params, env=env_c, cost_model="heterogeneous")
+    card = run_policy(host_policy("akpc", t_c, env_c, "heterogeneous"),
+                      cpu_head, layout=lay)
+    cpu_lay = StateLayout(kind="row_sharded",
+                          mesh=logical_mesh(MESH_SHARDS, MESH_SHARDS, "cpu"))
+    cpu = run_policy(host_policy("akpc", t_c, env_c, "heterogeneous"),
+                     cpu_head, device="cpu", layout=cpu_lay)
+    same_point(card, cpu, "mesh hetero-catalog-10k CPU head")
+    same_costs(card, cpu, "mesh hetero-catalog-10k CPU head")
+    line["hetero-catalog-10k"] = {
+        **rec, "policy": "akpc", "windows": res.n_windows,
+        "wall_s": res.wall_seconds, "dense_wall_s": dense.wall_seconds,
+        "dense_scan_s": dense.loop_stats["scan_s"],
+        "bitwise_dense": True, "cpu_head_requests": cpu_head.n_requests,
+        "cpu_head_windows": cpu.n_windows}
+
+    # -- 10^6 items x 600 servers: 4.8 GB of E, 1.2 GB a block ------------
+    n_items, n_srv, n_req = MESH_BIG
+    t0 = time.perf_counter()
+    big = synth_trace(SynthConfig(
+        kind="spotify", n_items=n_items, n_servers=n_srv, n_requests=n_req,
+        t_max=60.0 * n_req / 1_000_000, bundle_cover=1.0, bundle_zipf=0.7,
+        seed=seed))
+    trace_s = time.perf_counter() - t0
+    runs, peaks = {}, {}
+    for key, layout in (("row_sharded", lay), ("dense", None)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        runs[key] = run_policy(get_policy("no_packing", params=params), big,
+                               layout=layout)
+        peaks[key] = torch.cuda.max_memory_allocated()
+        line["launches"][f"catalog-1m {key}"] = counts()
+    sh, dense = runs["row_sharded"], runs["dense"]
+    if line["launches"]["catalog-1m row_sharded"]["packed_lookup"] <= 0:
+        raise AssertionError("mesh catalog-1m: packed_lookup never launched")
+    same_bits(dense, sh, "mesh catalog-1m dense")
+    if not (np.isfinite(sh.total) and sh.total > 0.0
+            and sh.costs.n_requests == n_req):
+        raise AssertionError(f"mesh catalog-1m: total {sh.total}")
+    line["catalog-1m"] = {
+        **sharded_record(sh, lay, big), "policy": "no_packing",
+        "cost_model": "table1", "trace_s": trace_s,
+        "wall_s": sh.wall_seconds, "dense_wall_s": dense.wall_seconds,
+        "dense_scan_s": dense.loop_stats["scan_s"],
+        "max_memory_allocated": peaks["row_sharded"],
+        "dense_max_memory_allocated": peaks["dense"],
+        "bitwise_dense": True}
+    del runs, sh, dense, big
+
+    # -- fig10's grid on a head, a 2 x 2 mesh == the mesh-less sweep -------
+    pts = fig10_points(MESH_FIG10_REQUESTS)
+    base_eng = SweepEngine()
+    base = base_eng.run(pts)
+    mesh2 = logical_mesh(*MESH_SWEEP)
+    eng = SweepEngine(mesh=mesh2, layout=StateLayout(kind="row_sharded"))
+    reset_launches()
+    torch.cuda.synchronize()
+    got = eng.run(pts)
+    launches = counts()
+    line["launches"]["sweep-fig10 2x2"] = launches
+    groups = eng.last_stats["groups"]
+    live = sum(g["steps"] for g in groups if not g["const_dt"])
+    if launches[STEP] != live or launches["packed_lookup"] <= 0:
+        raise AssertionError(f"mesh sweep-fig10: {launches[STEP]} "
+                             f"seg_scan_step launches for {live} steps")
+    if {g["block"] for g in groups} != {0, 1}:
+        raise AssertionError("mesh sweep-fig10: the lanes did not split "
+                             "over the scenario axis")
+    assert_parity(pts, base, got)
+    for p, a, b in zip(pts, base, got):
+        same_point(a, b, f"mesh sweep-fig10 {p.tag}")
+    line["sweep-fig10"] = {
+        "requests": MESH_FIG10_REQUESTS, "points": len(pts),
+        "mesh": mesh2.shape, **scan_lines(groups),
+        "blocks": [g["block"] for g in groups],
+        "block_ops": [g["block_ops"] for g in groups],
+        "sweep_wall_s": eng.last_wall, "meshless_wall_s": base_eng.last_wall,
+        "seg_scan_launches": launches[STEP]}
+    print("mesh " + json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2712,6 +2893,9 @@ def main() -> int:
     t0 = time.perf_counter()
     figures, fig_step_rec = figures_phase(out_dir)
     phase("figures", t0)
+    t0 = time.perf_counter()
+    mesh = mesh_phase(traces2["hetero-catalog-10k"], args.seed)
+    phase("mesh", t0)
     consumers = {
         **{f"learned {cm}": line["launches"] for cm, line in learned.items()},
         "learned heterogeneous live":
@@ -2816,6 +3000,10 @@ def main() -> int:
         for key, counts in figures["launches"].items():
             if counts[counter]:
                 by_config.setdefault(f"figures {key}", {})["launches"] = \
+                    counts[counter]
+        for key, counts in mesh["launches"].items():
+            if counts[counter]:
+                by_config.setdefault(f"mesh {key}", {})["launches"] = \
                     counts[counter]
         if name in SEG_KERNELS:
             by_config["figures fig8-bucketed-hetero step, captured"] = {

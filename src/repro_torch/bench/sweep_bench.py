@@ -4,6 +4,7 @@ share (port of ``benchmarks/sweep_bench.py``, and of fig10's grid).
 
     python -m repro_torch.bench.sweep_bench [--device cpu]
     python -m repro_torch.bench.sweep_bench --smoke [--device cpu]
+    python -m repro_torch.bench.sweep_bench --mesh [--smoke] [--device cpu]
 
 :func:`main` replays an (alpha x rho) sensitivity grid of AKPC points over
 the Table-II ``netflix`` trace two ways on the same device: the
@@ -21,9 +22,18 @@ full run asserts a >= 5x cold speedup.
 ``--smoke``: 60,000 requests, 16 x 2 points, the warm sweep must beat the
 serial loop, and the mixed-shape gate (:func:`mixed_shape_gate`): four
 points of distinct (n, m) under a ``bucketed`` layout replay as one scan
-a bucket cohort (2 cohorts), each equal to its serial run.  The
-reference's ``--mesh`` scaling rows wait for the port's mesh (ROADMAP
-queue 1, item 5).
+a bucket cohort (2 cohorts), each equal to its serial run.
+
+``--mesh`` adds the reference's devices x points rows
+(:func:`bench_mesh`): the same grid swept on a
+:func:`~repro_torch.launch.mesh.make_sweep_mesh` of 1, 2 and 4 devices
+(scenario lanes split over them) and on 4 devices as 2 x 2 and 1 x 4
+``("scenario", "state_row")`` meshes under the ``row_sharded`` layout,
+each row after parity against the mesh-less sweep (costs at 1e-9, state
+float for float).  The devices are distinct CUDA devices where the
+machine has enough, else logical shards of the first one (of the CPU with
+``--device cpu``): on one card the rows show what a logical mesh costs,
+not how a sweep scales.
 
 Shared pieces:
 
@@ -39,14 +49,18 @@ Shared pieces:
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
 
 import numpy as np
+import torch
 
 from ..core import CacheEnvironment, CostParams, SweepEngine, SweepPoint
+from ..core.replay import resolve_device
 from ..core.state_layout import StateLayout
+from ..launch.mesh import canonical_device, make_sweep_mesh
 from ..traces import SynthConfig, paper_trace, synth_trace
 from .common import device_arg, emit, save_json, t_cg_for
 
@@ -194,10 +208,72 @@ def mixed_shape_gate(device=None) -> dict:
                        "col_bucket": lay.col_bucket}}
 
 
+#: the --mesh rows: (devices, state_rows) of each mesh
+MESH_SHAPES = ((1, 1), (2, 1), (4, 1), (4, 2), (4, 4))
+
+
+def mesh_devices(n_devices: int, device=None) -> list:
+    """``n_devices`` distinct CUDA devices when the machine has them, else
+    logical shards (repeats) of ``device``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= n_devices:
+        return [torch.device("cuda", i) for i in range(n_devices)]
+    return [canonical_device(dev)] * n_devices
+
+
+def bench_mesh(n: int, n_alphas: int, n_rhos: int, device=None) -> list:
+    """Devices x points rows: the fig6 grid over ``n`` requests swept on
+    each mesh of :data:`MESH_SHAPES` (rows split under ``row_sharded``
+    when ``state_rows`` > 1), cold then warm, each run held against the
+    mesh-less sweep first."""
+    trace = paper_trace("netflix", n_requests=n, seed=0)
+    pts = build_grid(trace, n_alphas, n_rhos)
+    base = SweepEngine(device=device).run(pts)
+    rows = []
+    for n_dev, state_rows in MESH_SHAPES:
+        mesh = make_sweep_mesh(n_dev, state_rows,
+                               devices=mesh_devices(n_dev, device))
+        lay = (StateLayout(kind="row_sharded", mesh=mesh) if state_rows > 1
+               else None)
+        eng = SweepEngine(mesh=mesh, layout=lay)
+        t0 = time.perf_counter()
+        cold = eng.run(pts)
+        t_cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = eng.run(pts)
+        t_warm = time.perf_counter() - t0
+        for got in (cold, warm):
+            assert_parity(pts, base, got)
+            for pt, a, b in zip(pts, base, got):
+                if not (np.array_equal(a.state.E, b.state.E)
+                        and np.array_equal(a.state.anchor, b.state.anchor)):
+                    raise AssertionError(f"{pt.tag}: mesh state differs")
+        groups = eng.last_stats["groups"]
+        row = {"physical_devices": mesh.physical_devices,
+               "logical_devices": mesh.size, "state_rows": state_rows,
+               "mesh_shape": mesh.shape, "points": len(pts),
+               "scans": len(groups),
+               "lanes": [g["lanes"] for g in groups],
+               "cold_seconds": t_cold, "warm_seconds": t_warm,
+               "state_bytes_per_device": (lay or StateLayout())
+               .state_bytes_per_device(trace.n, trace.m),
+               "block_ops": sum(g.get("block_ops", 0) for g in groups),
+               "device_copies": sum(g.get("device_copies", 0)
+                                    for g in groups)}
+        rows.append(row)
+        print("# mesh: " + json.dumps(row), flush=True)
+    if any(r["physical_devices"] < r["logical_devices"] for r in rows):
+        print("# mesh: logical shards of one device: these rows are the "
+              "cost of a logical mesh, not scaling", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--smoke", action="store_true",
                     help="small run: parity + the sweep must beat serial")
+    ap.add_argument("--mesh", action="store_true",
+                    help="also record devices x points mesh rows")
     device_arg(ap)
     args = ap.parse_args(argv)
     env = os.environ.get
@@ -264,6 +340,9 @@ def main(argv=None) -> int:
     }
     if args.smoke:
         payload["mixed_shape"] = mixed_shape_gate(args.device)
+    if args.mesh:
+        payload["mesh_scaling"] = bench_mesh(n, n_alphas, n_rhos,
+                                             args.device)
     save_json("BENCH_sweep_torch", payload)
     if args.smoke:
         if t_warm >= t_serial:

@@ -562,6 +562,7 @@ def run_policy(
     device=None,
     batch_size: int | None = None,
     progress: Callable[[int], None] | None = None,
+    layout=None,
 ) -> RunResult:
     """Replay a full trace under ``policy`` on ``device`` (default CUDA).
 
@@ -569,10 +570,12 @@ def run_policy(
     :class:`RunResult`, state float-for-float equal to the numpy engine,
     costs equal at 1e-9.  ``device=None`` means ``"cuda"`` and raises when
     CUDA is absent; pass ``device="cpu"`` to run the plain versions on the
-    CPU.
+    CPU.  ``layout`` is the device state layout
+    (:class:`~repro_torch.core.state_layout.StateLayout`; dense, bucketed
+    or row_sharded).
     """
     from .replay import run_policy_torch
 
     return run_policy_torch(
         policy, trace, device=device, batch_size=batch_size,
-        progress=progress)
+        progress=progress, layout=layout)

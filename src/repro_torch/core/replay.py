@@ -53,6 +53,9 @@ from .cost import (
     TieredCostModel,
 )
 from .engine import CacheState, ReplayEngine
+from .sharded_state import RowShardedState, ShardedRows
+from .sharded_state import put_rows as _put
+from .sharded_state import take_rows as _take
 from .state_layout import StateLayout
 
 _I64 = torch.int64
@@ -197,27 +200,10 @@ def _rate_hook(kind, spec, counts, sizes, j):
 
 
 # The replay step's event tensors are (n,), shared by the scenario lanes,
-# or (S, n), each lane's own (lanes that each replay a schedule).
-def _take(a, idx):
-    """``a[:, idx]``: ``idx`` (n,) shared by the lanes, or (S, n) lane by
-    lane; a 3-D ``a`` gives whole rows."""
-    if idx.dim() == 1:
-        return a[:, idx]
-    if a.dim() == 3:
-        idx = idx[..., None].expand(-1, -1, a.shape[2])
-    return a.gather(1, idx)
-
-
-def _put(a, idx, src) -> None:
-    """``a[:, idx] = src`` in place, ``idx`` as :func:`_take` reads it."""
-    if idx.dim() == 1:
-        a[:, idx] = src
-        return
-    if a.dim() == 3:
-        idx = idx[..., None].expand(-1, -1, a.shape[2])
-    a.scatter_(1, idx, src.expand(idx.shape))
-
-
+# or (S, n), each lane's own (lanes that each replay a schedule).  The
+# state's rows are read and written through ``_take`` / ``_put``
+# (``sharded_state.take_rows`` / ``put_rows``): a row-sharded state routes
+# each index to the block that owns it.
 def _lane(a, idx):
     """``a[idx]`` for an event tensor ``a``: (n,) shared, or (S, n) with
     ``idx`` (S, k) lane by lane."""
@@ -232,24 +218,60 @@ def fresh_state_arrays(n: int, m: int, layout=None) -> tuple:
     return np.zeros((rows, cols), np.float64), np.full(rows, -1, np.int64)
 
 
-def _state_arrays(state: CacheState, rows: int, cols: int, device) -> tuple:
-    """Host ``CacheState`` -> (rows, cols) device arrays: the live (k, m)
+def _host_state(state: CacheState, rows: int, cols: int) -> tuple:
+    """Host ``CacheState`` -> (rows, cols) host arrays: the live (k, m)
     block in the top-left corner, padded rows inert, padded columns zero."""
     E0 = np.zeros((rows, cols), np.float64)
     a0 = np.full(rows, -1, np.int64)
     k = state.partition.k
     E0[:k, :state.m] = state.E
     a0[:k] = state.anchor
+    return E0, a0
+
+
+def _state_arrays(state: CacheState, rows: int, cols: int, device) -> tuple:
+    """Host ``CacheState`` -> (rows, cols) device arrays."""
+    E0, a0 = _host_state(state, rows, cols)
     return (torch.as_tensor(E0, device=device),
             torch.as_tensor(a0, device=device))
 
 
+def _placed_state(state: CacheState, rows: int, cols: int, layout, device,
+                  *, block: int = 0, lanes: int | None = None) -> tuple:
+    """Host ``CacheState`` -> the views of a
+    :class:`~repro_torch.core.sharded_state.RowShardedState` over lane
+    block ``block``'s ``state_row`` devices, whose first device must be
+    ``device`` (where the scan runs)."""
+    from ..launch.mesh import canonical_device
+
+    devs = layout.mesh.row_devices(block)
+    if devs[0] != canonical_device(device):
+        raise ValueError(f"the row blocks' home device {devs[0]} is not "
+                         f"the replay's device {device}")
+    st = RowShardedState.from_dense(*_host_state(state, rows, cols), devs,
+                                    lanes=lanes)
+    return st.E, st.anchor
+
+
 def state_to_device(state: CacheState, n: int, device, layout=None) -> tuple:
-    """Host ``CacheState`` -> device arrays in ``layout``'s geometry: ``E``
-    float64, ``anchor`` int64, the last row being the dump row (dense:
-    (n+1, m))."""
-    rows, cols = StateLayout.resolve(layout).state_dims(n, state.m)
+    """Host ``CacheState`` -> device arrays in ``layout``'s geometry and
+    placement: ``E`` float64, ``anchor`` int64, the last row being the dump
+    row (dense: (n+1, m)); a row-sharded layout on a mesh gives the views of
+    a :class:`~repro_torch.core.sharded_state.RowShardedState`."""
+    lay = StateLayout.resolve(layout)
+    rows, cols = lay.state_dims(n, state.m)
+    if lay.places_rows:
+        return _placed_state(state, rows, cols, lay, device)
     return _state_arrays(state, rows, cols, device)
+
+
+def state_head(a, k: int, laned: bool) -> np.ndarray:
+    """The first ``k`` rows of a device state tensor (rows on axis 1 when
+    ``laned``, else axis 0) on the host; a row-sharded one assembles its
+    blocks and leaves out padding, dump and scratch rows."""
+    if isinstance(a, ShardedRows):
+        return a.head(k)
+    return (a[:, :k] if laned else a[:k]).cpu().numpy()
 
 
 def apply_acc(costs: CostBreakdown, schedule, acc: np.ndarray) -> CostBreakdown:
@@ -374,7 +396,7 @@ def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
                                           first_cjs.clone())
         v, bidx, vmax = scan_fn(*scan_in)           # per lane
         a0_s = _take(anchor, c_s)
-        Eg = Ef.gather(1, c_s * m + a0_s.clamp(min=0))   # in-range gather
+        Eg = _take(Ef, c_s * m + a0_s.clamp(min=0))     # in-range gather
         Ea0_s = torch.where(a0_s >= 0, Eg, float("-inf"))
         prev_v = torch.where(
             first_cs, float("-inf"),
@@ -434,10 +456,9 @@ def _replay_step(E, anchor, acc, x, spec, dt, dt0, *, kind, charge,
     if const_dt:
         _put(Ef, uc * m + uj, x["upd_t"] + dt0)
         a_cur = _take(anchor, ac)
-        aE = Ef.gather(1, ac * m + a_cur.clamp(min=0))   # POST-update E
+        aE = _take(Ef, ac * m + a_cur.clamp(min=0))     # POST-update E
         upd = (a_cur < 0) | (x["anc_t"] + dt0 >= aE)
-        anchor.scatter_(1, torch.where(upd, ac, K),
-                        x["anc_j"].expand(S, -1))
+        _put(anchor, torch.where(upd, ac, K), x["anc_j"].expand(S, -1))
     else:
         _put(Ef, uc * m + uj, _take(vmax, x["pos_u"]))
         pa = x["pos_a"]
@@ -729,7 +750,7 @@ def build_host_schedule(partition0, trace, clique_generator, t_cg, *,
 def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,
                  device, state: CacheState | None = None, rows=None,
                  charge="requested", use_kernels: bool = True,
-                 record: bool = False) -> tuple:
+                 record: bool = False, layout=None, block: int = 0) -> tuple:
     """Replay under each pricing spec of ``specs``, the lanes of one scan,
     every lane starting from ``state`` (a fresh state when None), in the
     schedules' state geometry (their ``state_rows`` x ``state_cols``).
@@ -739,7 +760,13 @@ def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,
     folded into ``costs[s]``.  Returns ``(states, stats)``: the lanes'
     final :class:`~repro_torch.core.engine.CacheState` and the scan's
     step counts and seconds; with ``record=True`` also ``stats["record"]``,
-    the (nb, S, 3) per-step record (:func:`run_schedule`) on the host."""
+    the (nb, S, 3) per-step record (:func:`run_schedule`) on the host.
+
+    Under a ``layout`` that places rows (``row_sharded`` on a mesh), the
+    state is a :class:`~repro_torch.core.sharded_state.RowShardedState`
+    over lane block ``block``'s ``state_row`` devices, the first being
+    ``device``; ``stats`` then also has its block accesses and copies
+    between distinct devices."""
     t0 = time.perf_counter()
     S = len(specs)
     scheds = list(schedule) if isinstance(schedule, (list, tuple)) \
@@ -749,13 +776,19 @@ def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,
     if state is None:
         state = CacheState.fresh(s0.partition0, s0.m)
     stats: dict = {}
+    lay = StateLayout.resolve(layout)
     with _span("host.scan"):
-        E0, a0 = _state_arrays(state, s0.state_rows, s0.state_cols, device)
+        if lay.places_rows:
+            E0, a0 = _placed_state(state, s0.state_rows, s0.state_cols, lay,
+                                   device, block=block, lanes=S)
+        else:
+            E0, a0 = _state_arrays(state, s0.state_rows, s0.state_cols,
+                                   device)
+            E0 = E0.expand(S, -1, -1).contiguous()
+            a0 = a0.expand(S, -1).contiguous()
         spec = {k: np.stack([sp[k] for sp in specs]) for k in specs[0]}
         rec = (torch.zeros((s0.nb, S, 3), dtype=torch.float64, device=device)
                if record else None)
-        E0 = E0.expand(S, -1, -1).contiguous()
-        a0 = a0.expand(S, -1).contiguous()
         if len(scheds) == 1:
             E, anchor, acc = run_schedule(
                 s0, spec, statics, E0, a0, charge=charge,
@@ -766,8 +799,10 @@ def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,
                 use_kernels=use_kernels, stats=stats, record=rec)
         acc = acc.cpu().numpy()
         kmax = max(sc.final_partition.k for sc in scheds)
-        E = E[:, :kmax].cpu().numpy()
-        anchor = anchor[:, :kmax].cpu().numpy()
+        E = state_head(E, kmax, True)
+        anchor = state_head(anchor, kmax, True)
+        if isinstance(E0, ShardedRows):
+            stats.update(shards=len(E0.blocks), **E0.stats)
         if record:
             stats["record"] = rec.cpu().numpy()
     states = []
@@ -788,9 +823,13 @@ class TorchReplayEngine:
     holds configuration, cache state and costs; ``replay`` runs the trace
     on ``device`` and syncs state + costs back, so the host state after a
     replay equals what the numpy engine of ``repro`` produces.  ``layout``
-    sets the host-schedule replay's state geometry (dense or bucketed: the
-    per-server spec arrays pad to its columns); the device clique
-    generation keeps a dense-n carry of its own under either.
+    sets the host-schedule replay's state geometry and placement (dense,
+    bucketed: the per-server spec arrays pad to its columns, or
+    row_sharded: rows padded to the shard count and, on a mesh, split over
+    lane block 0's ``state_row`` devices, whose first is the replay's
+    device: ``device=None`` takes it); the device clique generation keeps
+    a dense-n carry of its own under a single-shard layout and is not
+    taken under a row-sharded one.
     """
 
     def __init__(self, *args, engine: ReplayEngine | None = None,
@@ -798,8 +837,10 @@ class TorchReplayEngine:
                  **kwargs):
         from ..kernels.packed_lookup import CliqueLookup
 
-        self.device = resolve_device(device)
         self.layout = StateLayout.resolve(layout)
+        if device is None and self.layout.places_rows:
+            device = self.layout.mesh.home
+        self.device = resolve_device(device)
         self.engine = engine if engine is not None else ReplayEngine(
             *args, **kwargs)
         self._spec, self._statics = cost_spec(
@@ -877,7 +918,7 @@ class TorchReplayEngine:
         (eng.state,), scan = replay_lanes(
             schedule, [self._state_spec], self._statics, [eng.costs],
             device=self.device, state=eng.state, charge=eng.caching_charge,
-            use_kernels=use_kernels, record=record)
+            use_kernels=use_kernels, record=record, layout=self.layout)
         if record:
             self.last_record = scan.pop("record")[:, 0]
         eng._set_partition_caches(schedule.final_partition)
@@ -900,7 +941,8 @@ def run_policy_torch(policy, trace, *, device=None, batch_size=None,
     generation only when the policy has a ``t_cg``), and returns a
     :class:`~repro_torch.core.policy.RunResult`.  ``layout`` is the device
     state layout (:class:`~repro_torch.core.state_layout.StateLayout`, a
-    kind string, or None for dense).
+    kind string, or None for dense); a ``row_sharded`` one on a mesh runs
+    on its first device unless ``device`` names it.
     """
     from .policy import RunResult, get_policy
 

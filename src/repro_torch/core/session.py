@@ -102,8 +102,11 @@ class CacheSession:
     this session's catalog.  ``trace`` is needed only by offline policies
     (``dp_greedy`` mines its fixed pairs from it) and, as in the offline
     replay (``run_policy``), resolves a sized trace's environment.
-    ``layout`` is the device state layout (dense or bucketed); the host
-    state is dense under either, so a snapshot restores across them.
+    ``layout`` is the device state layout (dense, bucketed or
+    row_sharded; on a mesh the session runs on its first device unless
+    ``device`` names it); the host state is dense under every layout, so a
+    snapshot restores across them, but a row-sharded session refuses a
+    row-sharded snapshot of another shard count.
     """
 
     def __init__(self, policy: BasePolicy | str, n: int, m: int, *,

@@ -47,18 +47,34 @@ Under a ``bucketed`` :class:`~repro_torch.core.state_layout.StateLayout`
 the schedules are built at the layout's padded state dims, so points of
 different (n, m) whose dims round to the same bucket are one cohort and
 replay as the lanes of one scan (``last_stats["groups"]``: one record a
-scan); the device-CGM super-groups keep their dense-n carry.  The mesh
-(and with it the ``row_sharded`` layout) is refused (ROADMAP queue 1,
-item 5), and so is a cost model without a device formula: the port never
-falls back to another backend or to the CPU.
+scan); the device-CGM super-groups keep their dense-n carry.
+
+``mesh=`` (a :class:`~repro_torch.launch.mesh.SweepMesh`,
+``make_sweep_mesh``) spreads each scan's lanes over the mesh's first
+(scenario) axis: when that axis's size divides the lane count, lane block
+i (contiguous lanes) runs its own scan on its home device (the block's
+first device), with the schedules its lanes use uploaded there once;
+otherwise the lanes stay one scan on the mesh's first device, as the
+reference's ``_shard`` leaves an uneven scenario axis unsplit.  Under a
+``row_sharded`` layout on the same mesh the state rows of each lane block
+go over its ``"state_row"`` devices (a bare ``row_sharded`` layout adopts
+the engine's mesh); the device-CGM super-groups are then not formed (rows
+split over devices refuse the device clique generation, as in the
+reference), so AKPC points take the host schedule.  Splitting lanes
+changes the shapes the per-lane cost sums reduce over, so a split point
+equals the mesh-less sweep's at 1e-9, not bit for bit; row sharding alone
+changes no number.  A cost model without a device formula is refused: the
+port never falls back to another backend or to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time as _time
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 
 from .cliques import CliquePartition
 from .cost import CacheEnvironment, CostBreakdown, get_cost_model
@@ -81,8 +97,6 @@ SHAREABLE_POLICIES = (
     "no_packing", "packcache", "dp_greedy",
     "akpc", "akpc_no_acm", "akpc_base",
 )
-#: what the refusals name
-_ROADMAP = "ROADMAP queue 1, item 5"
 
 
 @dataclasses.dataclass
@@ -166,16 +180,30 @@ class SweepEngine:
 
     def __init__(self, backend: str = "torch", mesh=None,
                  layout: StateLayout | str | None = None, device=None):
+        from ..launch.mesh import canonical_device
+
         if backend not in ("torch", "serial"):
             raise ValueError(f"unknown sweep backend {backend!r}; the port "
                              "has 'torch' and 'serial'")
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a sweep mesh is not ported yet ({_ROADMAP}); the port "
-                "sweeps on one card")
         self.backend = backend
-        self.layout = StateLayout.resolve(layout)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        layout = StateLayout.resolve(layout)
+        if (layout.kind == "row_sharded" and layout.mesh is None
+                and mesh is not None
+                and layout.row_axis in mesh.axis_names):
+            # a bare row_sharded layout adopts the engine's mesh (the
+            # make_sweep_mesh(..., state_rows=) two-axis form)
+            layout = dataclasses.replace(layout, mesh=mesh)
+        if layout.places_rows and mesh is not None and layout.mesh is not mesh:
+            raise ValueError("a row_sharded layout's mesh must be the "
+                             "sweep's mesh")
+        self.layout = layout
+        home = (mesh.home if mesh is not None
+                else layout.mesh.home if layout.places_rows else None)
+        self.device = resolve_device(home if device is None else device)
+        if home is not None and canonical_device(self.device) != home:
+            raise ValueError(f"device {self.device} is not the mesh's "
+                             f"first device {home}")
         #: wall seconds of the most recent :meth:`run` (schedules + device)
         self.last_wall = 0.0
         #: host schedules the most recent run built
@@ -366,23 +394,57 @@ class SweepEngine:
             "clique_sizes": schedule.final_partition.sizes(),
         }
 
+    def _lane_blocks(self, S: int) -> int:
+        """Lane blocks of an S-lane scan: the mesh's scenario axis size
+        when it divides S, else 1 (the reference's ``_shard`` rule)."""
+        if self.mesh is None:
+            return 1
+        n_sc = int(self.mesh.devices.shape[0])
+        return n_sc if n_sc > 1 and S % n_sc == 0 else 1
+
     def _replay_group(self, recs: list, rows: list, lanes: list, statics,
                       charge, members: int = 1) -> list:
-        """One scan over ``lanes`` (prepared points): lane s replays
-        ``recs[rows[s]]``'s schedule under its spec, one laned
-        ``run_schedule`` when every lane shares one schedule, else one
-        ``run_schedules``.  One RunResult per lane."""
+        """``lanes`` (prepared points) as the lanes of one scan a lane
+        block (:meth:`_lane_blocks`): lane s replays ``recs[rows[s]]``'s
+        schedule under its spec, one laned ``run_schedule`` when the
+        block's lanes share one schedule, else one ``run_schedules`` over
+        the schedules the block uses.  One RunResult per lane."""
+        S = len(lanes)
+        n_blk = self._lane_blocks(S)
+        width = S // n_blk
+        out = []
+        for blk in range(n_blk):
+            lo, hi = blk * width, (blk + 1) * width
+            used = sorted(set(rows[lo:hi]))
+            sub = [recs[g] for g in used]
+            sub_rows = [used.index(r) for r in rows[lo:hi]]
+            device = (self.device if n_blk == 1
+                      else self.mesh.row_devices(blk)[0])
+            out += self._replay_block(sub, sub_rows, lanes[lo:hi], statics,
+                                      charge, members, device, blk)
+        return out
+
+    def _replay_block(self, recs, rows, lanes, statics, charge, members,
+                      device, blk) -> list:
+        """One scan of one lane block on ``device`` (state rows over the
+        block's ``state_row`` devices under a row-sharded layout), with
+        ``device`` current: the kernels launch on the current device."""
         S = len(lanes)
         costs = [CostBreakdown(model=statics[0]) for _ in lanes]
-        states, stats = replay_lanes(
-            [r["schedule"] for r in recs], [pr["spec"] for pr in lanes],
-            statics, costs, device=self.device, rows=rows, charge=charge)
+        with (torch.cuda.device(device) if device.type == "cuda"
+              else contextlib.nullcontext()):
+            states, stats = replay_lanes(
+                [r["schedule"] for r in recs], [pr["spec"] for pr in lanes],
+                statics, costs, device=device, rows=rows, charge=charge,
+                layout=self.layout, block=blk)
         s0 = recs[0]["schedule"]
         self.last_stats["groups"].append(
             {"lanes": S, "members": members, "schedules": len(recs),
              "steps": stats["steps"], "nb": s0.nb, "ne": s0.ne,
              "const_dt": s0.const_dt, "xs_bytes": stats["xs_bytes"],
-             "scan_s": stats["scan_s"]})
+             "scan_s": stats["scan_s"], "block": blk, "device": str(device),
+             **{k: stats[k] for k in ("shards", "block_ops", "device_copies")
+                if k in stats}})
         out = []
         for pr, c, st, r in zip(lanes, costs, states, rows):
             rec = recs[r]

@@ -50,10 +50,14 @@ both directions (a live snapshot taken mid-stream carries the requests
 not yet dispatched under ``"live"``).
 
 The carry of the host-schedule path takes the session's state layout
-(dense or bucketed; the ratchet's install dims grow with its rows); the
-device CGM's carry is dense-n under either.  ``device=None`` means CUDA,
-which must be present; ``device="cpu"`` runs the plain versions on the
-CPU.
+(dense, bucketed or row_sharded; the ratchet's install dims grow with its
+rows; on a mesh a row-sharded carry is a
+:class:`~repro_torch.core.sharded_state.RowShardedState` whose blocks stay
+on the mesh's ``state_row`` devices); the device CGM's carry is dense-n
+under a single-shard layout, and a row-sharded one turns the device CGM
+off (``cgm="force"`` raises).  ``device=None`` means CUDA (a row-sharded
+layout on a mesh: the mesh's first device), which must be present;
+``device="cpu"`` runs the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -83,6 +87,7 @@ from ..core.replay import (
     lane_spec_to_device,
     run_schedule,
     spec_to_device,
+    state_head,
     state_to_device,
 )
 from ..core.schedule import pad_schedule, schedule_dims
@@ -136,8 +141,8 @@ class LiveServingEngine:
     Parameters
     ----------
     policy, n, m, env, batch_size, layout, device : as for
-        :class:`~repro_torch.core.session.CacheSession` (``layout``: dense
-        or bucketed).
+        :class:`~repro_torch.core.session.CacheSession` (``layout``:
+        dense, bucketed or row_sharded).
     chunk_size : requests a dispatched chunk; submissions buffer until a
         chunk fills, and :meth:`drain` dispatches the ragged remainder.
     ring : chunks in flight before a submit waits on the oldest.
@@ -431,9 +436,14 @@ class LiveServingEngine:
         if self._E is not None:
             return
         eng = self.session.engine
-        E0, a0 = state_to_device(eng.state, self.n, "cpu", self.layout)
-        self._E = self._upload(E0)
-        self._anchor = self._upload(a0)
+        if self.layout.places_rows:
+            # row blocks go straight to their mesh devices
+            self._E, self._anchor = state_to_device(
+                eng.state, self.n, self.device, self.layout)
+        else:
+            E0, a0 = state_to_device(eng.state, self.n, "cpu", self.layout)
+            self._E = self._upload(E0)
+            self._anchor = self._upload(a0)
         self._acc = self._upload(torch.from_numpy(self._seed()))
         spec = self.session.replayer._state_spec
         self._spec_d = {k: self._upload(v) for k, v in
@@ -649,8 +659,8 @@ class LiveServingEngine:
         k = self._part.k
         self.state_reads += 1
         eng.state = CacheState.from_device(
-            self._part, self._E[:k].cpu().numpy(),
-            self._anchor[:k].cpu().numpy(), self.m)
+            self._part, state_head(self._E, k, False),
+            state_head(self._anchor, k, False), self.m)
         eng._set_partition_caches(self._part)
         keep_fn = getattr(self.policy, "item_keep", None)
         if keep_fn is not None:

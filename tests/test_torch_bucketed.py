@@ -10,8 +10,8 @@ columns in the scan), and at n = 1; a mixed-(n, m) sweep replays one scan
 a bucket cohort, every point equal to the reference; ``pad_schedule``
 keeps a schedule's geometry; snapshots cross dense <-> bucketed, within
 the port and to and from the reference's sessions; the live engine runs
-the bucketed carry.  ``row_sharded`` stays refused (the mesh, ROADMAP
-queue 1, item 5).
+the bucketed carry.  ``row_sharded`` (ported with the mesh) is held in
+``tests/test_torch_mesh.py``.
 """
 import numpy as np
 import pytest
@@ -122,8 +122,10 @@ def test_bucketed_geometry_rounds_up():
     assert StateLayout.resolve(None) is DENSE
     assert DENSE.state_dims(60, 600) == (61, 600) and DENSE.is_dense_for(60, 6)
     assert StateLayout.resolve("bucketed").state_dims(60, 600) == (1025, 768)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        StateLayout(kind="row_sharded")
+    bare = StateLayout(kind="row_sharded")     # no mesh, no shard count
+    assert bare.row_shards == 1 and bare.is_dense_for(60, 600)
+    assert StateLayout(kind="row_sharded", shards=4).state_dims(60, 600) \
+        == (64, 600)
     with pytest.raises(ValueError, match="unknown state layout"):
         StateLayout(kind="tiled")
 

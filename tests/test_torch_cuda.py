@@ -1194,3 +1194,114 @@ def test_bucketed_scan_step_equals_plain(cuda_device):
         got = seg_scan_step(*args)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_row_sharded_logical_mesh_equals_dense_card_run(cuda_device, shards):
+    """The row-sharded state on a mesh of ``shards`` logical shards of
+    cuda:0, per-server dt (``seg_scan_step`` once a live step, the host
+    clique generation's kernels through the host schedule): state float
+    for float and costs bit for bit against the dense card run, and the
+    CPU run at 1e-9."""
+    from repro_torch.bench.sweep_bench import env_for
+    from repro_torch.core.sharded_state import ShardedRows
+    from repro_torch.core.state_layout import StateLayout
+    from repro_torch.launch.mesh import make_sweep_mesh
+
+    tr = synth_trace(SynthConfig(
+        kind="netflix", n_items=60, n_servers=40, n_requests=6000,
+        t_max=20.0, bundle_cover=1.0, bundle_zipf=0.7, seed=3,
+        size_dist="lognormal"))
+    env = env_for(tr, CostParams(), 1.0)
+    mesh = make_sweep_mesh(shards, state_rows=shards,
+                           devices=["cuda:0"] * shards)
+    lay = StateLayout(kind="row_sharded", mesh=mesh)
+
+    def pol(name):
+        kw = dict(t_cg=0.9, top_frac=1.0) if name == "akpc" else {}
+        return get_policy(name, params=CostParams(), env=env,
+                          cost_model="heterogeneous", **kw)
+
+    for name in ("akpc", "no_packing"):
+        n0 = seg_scan_step.launches
+        got = run_policy(pol(name), tr, layout=lay)
+        assert got.loop_stats["path"] == "host_schedule"
+        assert got.loop_stats["shards"] == shards
+        assert got.loop_stats["device_copies"] == 0
+        assert seg_scan_step.launches - n0 == got.loop_stats["steps"] > 0
+        dense = run_policy(pol(name), tr)
+        assert np.array_equal(dense.state.E, got.state.E), name
+        assert np.array_equal(dense.state.anchor, got.state.anchor), name
+        assert dense.costs.as_dict() == got.costs.as_dict(), name
+        cpu = run_policy(pol(name), tr, device="cpu")
+        assert np.isclose(cpu.total, got.total, rtol=1e-9, atol=0.0), name
+    E, _ = lay.place_state(np.zeros((lay.state_rows(60), 40)),
+                           np.full(lay.state_rows(60), -1))
+    assert isinstance(E, ShardedRows)
+    assert all(b.device == torch.device("cuda", 0) for b in E.blocks)
+
+
+def test_mesh_sweep_2x2_on_card_equals_meshless(cuda_device):
+    """A 2 x 2 logical ("scenario", "state_row") mesh of cuda:0 under the
+    row_sharded layout: every point equals the mesh-less card sweep, state
+    float for float and costs at 1e-9 (lane blocks reduce the per-lane
+    cost sums over other shapes)."""
+    from repro_torch.bench.sweep_bench import fig10_points
+    from repro_torch.core.state_layout import StateLayout
+    from repro_torch.launch.mesh import make_sweep_mesh
+
+    pts = fig10_points(3000)
+    mesh = make_sweep_mesh(4, state_rows=2, devices=["cuda:0"] * 4)
+    eng = SweepEngine(mesh=mesh, layout=StateLayout(kind="row_sharded"))
+    got = eng.run(pts)
+    groups = eng.last_stats["groups"]
+    assert {g["block"] for g in groups} == {0, 1}
+    assert all(g["shards"] == 2 for g in groups)
+    base = SweepEngine().run(pts)
+    for p, a, b in zip(pts, base, got):
+        assert np.array_equal(a.state.E, b.state.E), p.tag
+        assert np.array_equal(a.state.anchor, b.state.anchor), p.tag
+        assert a.costs.n_misses == b.costs.n_misses, p.tag
+        assert np.isclose(a.total, b.total, rtol=1e-9, atol=0.0), p.tag
+
+
+def test_mesh_on_distinct_cards(cuda_device):
+    """Row blocks and lane blocks on distinct cards (skips on one card):
+    the routed state crosses devices and still equals the dense run on
+    cuda:0 bit for bit; a sweep on a (cards / 2) x 2 mesh equals the
+    mesh-less sweep (state; costs at 1e-9)."""
+    from repro_torch.bench.sweep_bench import env_for, fig10_points
+    from repro_torch.core.state_layout import StateLayout
+    from repro_torch.launch.mesh import make_sweep_mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    k = 4 if n_cards >= 4 else 2
+    tr = synth_trace(SynthConfig(
+        kind="netflix", n_items=60, n_servers=40, n_requests=6000,
+        t_max=20.0, bundle_cover=1.0, bundle_zipf=0.7, seed=3,
+        size_dist="lognormal"))
+    env = env_for(tr, CostParams(), 1.0)
+
+    def pol():
+        return get_policy("akpc", params=CostParams(), env=env,
+                          cost_model="heterogeneous", t_cg=0.9, top_frac=1.0)
+
+    lay = StateLayout(kind="row_sharded", mesh=make_sweep_mesh(k, k))
+    got = run_policy(pol(), tr, layout=lay)
+    assert got.loop_stats["shards"] == k
+    assert got.loop_stats["device_copies"] > 0
+    dense = run_policy(pol(), tr, device="cuda:0")
+    assert np.array_equal(dense.state.E, got.state.E)
+    assert np.array_equal(dense.state.anchor, got.state.anchor)
+    assert dense.costs.as_dict() == got.costs.as_dict()
+    pts = fig10_points(3000)
+    mesh = make_sweep_mesh(k, state_rows=2)
+    eng = SweepEngine(mesh=mesh, layout=StateLayout(kind="row_sharded"))
+    swept = eng.run(pts)
+    assert len({g["device"] for g in eng.last_stats["groups"]}) == k // 2
+    base = SweepEngine(device="cuda:0").run(pts)
+    for p, a, b in zip(pts, base, swept):
+        assert np.array_equal(a.state.E, b.state.E), p.tag
+        assert np.isclose(a.total, b.total, rtol=1e-9, atol=0.0), p.tag

@@ -150,15 +150,18 @@ def test_state_layout_dense_only():
     lay = StateLayout.resolve(None)
     assert lay.state_dims(10, 3) == (11, 3) and lay.dump_row(10) == 10
     assert lay.supports_device_cgm(10, 3)
-    # the bucketed layout is ported; row_sharded waits for the mesh
+    # the bucketed and row_sharded layouts are ported; a bare
+    # "row_sharded" names no shard count and raises, as the reference's
     assert StateLayout.resolve("bucketed").state_dims(10, 3) == (1025, 256)
     assert TorchReplayEngine(5, 2, device="cpu",
                              layout="bucketed").layout.kind == "bucketed"
-    for make in (lambda: StateLayout.resolve("row_sharded"),
-                 lambda: TorchReplayEngine(5, 2, device="cpu",
-                                           layout="row_sharded")):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            make()
+    sharded = TorchReplayEngine(
+        5, 2, device="cpu", layout=StateLayout(kind="row_sharded", shards=4))
+    assert sharded.layout.row_shards == 4
+    assert sharded.layout.state_dims(5, 2) == (8, 2)
+    assert not sharded.layout.supports_device_cgm(5, 2)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        StateLayout.resolve("row_sharded")
 
 
 def test_install_partition_equal():

@@ -38,6 +38,7 @@ from repro.traces import synth_trace as ref_synth_trace
 from repro_torch.bench import serve_bench
 from repro_torch.convert import trace_from_arrays
 from repro_torch.core import CacheSession, CostParams, get_policy
+from repro_torch.core.state_layout import StateLayout
 from repro_torch.serving import LiveServingEngine
 
 T_CG = 0.73                  # never divides the grids: windows split chunks
@@ -326,10 +327,11 @@ def test_live_cgm_auto_routes_device():
         _policy(crm_matmul=lambda H: H.T @ H), trace.n, trace.m,
         device="cpu")._cgm
     # a bucketed state keeps the device route (the CGM carry is dense-n);
-    # row_sharded waits for the mesh
+    # row-sharded state does not (its in-scan reductions need every slot
+    # on one device), as in the reference
     assert _live(trace, layout="bucketed")._cgm
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        _live(trace, layout="row_sharded")
+    assert not _live(trace, layout=StateLayout(kind="row_sharded",
+                                               shards=3))._cgm
 
 
 def test_serve_bench_holds_each_engine_to_offline():

@@ -10,8 +10,9 @@ axes, device-CGM super-group points, and trace shards.  Below the engine:
 the scans' lane form equals the per-lane scans and ``jax.vmap`` of the
 reference's jnp twins, a laned ``run_schedule`` equals one unlaned run
 per lane, and cohort padding changes nothing.  The refusals (backend,
-mesh, row_sharded layout, cost model) raise; a ``learned`` point sweeps like its
-serial run.
+a bare "row_sharded" layout name, cost model) raise, a mesh constructs
+(``tests/test_torch_mesh.py`` holds its sweeps); a ``learned`` point
+sweeps like its serial run.
 """
 import jax
 import jax.numpy as jnp
@@ -54,6 +55,7 @@ from repro_torch.core.replay import (
     run_schedule,
 )
 from repro_torch.core.schedule import build_schedule, pad_schedule, schedule_dims
+from repro_torch.core.state_layout import StateLayout
 from repro_torch.core.sweep import SHAREABLE_POLICIES
 from repro_torch.kernels import (
     seg_running_argmax,
@@ -61,6 +63,7 @@ from repro_torch.kernels import (
     seg_running_max,
     seg_running_max_plain,
 )
+from repro_torch.launch.mesh import make_sweep_mesh
 
 T_CG = 0.73
 TOP_FRAC = 1.0
@@ -314,9 +317,13 @@ def test_refusals(unit_traces):
     for backend in ("jax", "numpy", "tpu-magic"):
         with pytest.raises(ValueError, match="unknown sweep backend"):
             SweepEngine(backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        SweepEngine(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+    # the mesh is ported: an engine on a mesh of logical CPU shards runs
+    # on the mesh's first device, and a bare row_sharded layout adopts it
+    mesh = make_sweep_mesh(2, state_rows=2, devices=["cpu"] * 2)
+    eng = SweepEngine(mesh=mesh, layout=StateLayout(kind="row_sharded"))
+    assert eng.device == torch.device("cpu") and eng.mesh is mesh
+    assert eng.layout.mesh is mesh and eng.layout.row_shards == 2
+    with pytest.raises(ValueError, match="needs a mesh"):
         SweepEngine(layout="row_sharded", device="cpu")
     assert SweepEngine(layout="bucketed", device="cpu").layout.kind == \
         "bucketed"
