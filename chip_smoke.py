@@ -169,6 +169,21 @@
     block accesses a step; and fig10's grid on a 100,000-request head
     swept on a 2 x 2 ("scenario", "state_row") mesh, every point equal to
     the mesh-less sweep (state float for float, costs at 1e-9);
+13f. ``serve_model``: the model zoo's decoder family and the
+    continuous-batching ``BatchedServer``: granite-moe-3b-a800m at its
+    full config (32 layers, d 1536, 40 experts top-8 padded to 48, vocab
+    49,155, bf16, weights from a seeded generator) serves 16 requests of
+    4-12 prompt tokens and 16 new tokens each (batch 8, cache 256) while
+    the AKPC ``ExpertCacheManager`` (2 hosts, T_CG 24, on the card) watches
+    layer 0's routing; decode ms a step (CUDA events, median of the steady
+    steps), tokens/s, parameter bytes, peak memory and the expert cache's
+    totals; every kernel of the path launched, the manager's CGM kernels
+    and the ``packed_lookup`` gather of a step's cliques of layer 0's
+    ``wi`` (multi-MB rows, ``sliced``) bitwise against their plain
+    versions; staggered == solo on the card; and the six decoder-family
+    configs at full width cut to 2 layers, the card's ``decode_step``
+    logits and cache rows within ``CROSS_TOL`` of the port's CPU run on
+    the same weights over 4 steps at staggered positions;
 14. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
@@ -179,6 +194,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import pathlib
@@ -209,6 +225,7 @@ from repro_torch.bench import (  # noqa: E402
     table1,
 )
 from repro_torch.bench.common import (  # noqa: E402
+    PEAK_BYTES,
     PEAK_FP32,
     PEAK_TF32,
     bound,
@@ -282,9 +299,18 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.data import PackedDataPipeline, ShardStore  # noqa: E402
 from repro_torch.learned import hindsight_windows, train_policy  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.examples import (  # noqa: E402
+    serve_moe_expert_cache as moe_example,
+)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.common import tree_leaves as param_leaves  # noqa: E402,E501
 from repro_torch.serving import (  # noqa: E402
+    BatchedServer,
     ExpertCacheManager,
     LiveServingEngine,
+    Request,
 )
 from repro_torch.traces import SynthConfig, paper_trace, synth_trace  # noqa: E402
 
@@ -542,6 +568,28 @@ def worst_phase(report: list, seed: int, dev) -> dict:
     return records
 
 
+def cgm_cases(cap: dict) -> dict:
+    """The device CGM's kernels on the inputs ``cap`` captured from a run,
+    by name: (kernel call, plain call, library call or None, bound)."""
+    (H,) = cap["crm_update"]
+    M, A = cap["clique_pair_edges"]
+    X, sizes, omega, g32, k0 = cap["merge_density"]
+    return {
+        "crm_update": (lambda: crm_update(H), lambda: crm_update_plain(H),
+                       lambda: H.T @ H, pair_bound("crm_update", (H,))),
+        "clique_pair_edges": (
+            lambda: clique_pair_edges(M, A),
+            lambda: clique_pair_edges_plain(M, A),
+            lambda: M @ A @ M.T,
+            pair_bound("clique_pair_edges", (M, A))),
+        # the main path's call: D with the act mask of its k0 groups
+        "merge_density": (
+            lambda: merge_density(X, sizes, omega, g32, n_act=k0),
+            lambda: merge_density_plain(X, sizes, omega, g32, n_act=k0),
+            None, kernel_bench.merge_bound(sizes, omega, k0)),
+    }
+
+
 def kernel_phase(shapes: dict, captured: dict, seed: int, dev
                  ) -> tuple[dict, dict]:
     """The device clique generation's kernels: bitwise against their plain
@@ -610,21 +658,7 @@ def kernel_phase(shapes: dict, captured: dict, seed: int, dev
         X, sizes, omega, g32, k0 = cap["merge_density"]
         wcap, h = H.shape
         S = M.shape[0]
-        cases = {
-            "crm_update": (lambda: crm_update(H), lambda: crm_update_plain(H),
-                           lambda: H.T @ H, pair_bound("crm_update", (H,))),
-            "clique_pair_edges": (
-                lambda: clique_pair_edges(M, A),
-                lambda: clique_pair_edges_plain(M, A),
-                lambda: M @ A @ M.T,
-                pair_bound("clique_pair_edges", (M, A))),
-            # the main path's call: D with the act mask of its k0 groups
-            "merge_density": (
-                lambda: merge_density(X, sizes, omega, g32, n_act=k0),
-                lambda: merge_density_plain(X, sizes, omega, g32, n_act=k0),
-                None, kernel_bench.merge_bound(sizes, omega, k0)),
-        }
-        for name, (kern, plain, lib, bnd) in cases.items():
+        for name, (kern, plain, lib, bnd) in cgm_cases(cap).items():
             err = held(name, f"captured {label}", kern, plain)
             records.setdefault(label, {})[name] = {
                 "shape": {"h": h, "wcap": wcap, "S": S,
@@ -2717,6 +2751,323 @@ def mesh_phase(catalog, seed: int) -> dict:
     return line
 
 
+#: the serve_model phase: granite-moe-3b-a800m at its full config served
+#: through ``BatchedServer`` (requests, prompt tokens lo..hi-1, new tokens,
+#: batch, cache length) with the AKPC expert cache on its routing (hosts,
+#: T_CG); decode steps left out of the median as warm-up
+SERVE_ARCH = "granite_moe_3b_a800m"
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW = 16, (4, 13), 16
+SERVE_BATCH, SERVE_CACHE = 8, 256
+SERVE_HOSTS, SERVE_TCG = 2, 24.0
+SERVE_WARMUP = 2
+#: the card against the CPU at full width: the decoder-family configs cut
+#: to CROSS_LAYERS layers, CROSS_ROWS rows at staggered positions over a
+#: seeded cache of CROSS_CACHE positions (h2o-danube's 4096-slot ring
+#: wraps), CROSS_STEPS decode steps
+CROSS_ARCHS = ("qwen2_5_3b", "codeqwen1_5_7b", "h2o_danube_1_8b",
+               "command_r_35b", "granite_moe_3b_a800m", "phi_3_vision_4_2b")
+CROSS_LAYERS, CROSS_ROWS, CROSS_CACHE, CROSS_STEPS = 2, 2, 4096, 4
+#: largest gap of the card's bf16 logits and cache rows from the CPU's, as
+#: a share of the CPU's largest magnitude: bf16 keeps 8 bits, cuBLAS and
+#: the CPU's GEMMs sum in other orders, and a value on a rounding boundary
+#: rounds the other way (the CPU tests hold the port to the JAX package at
+#: 6e-2 for the same reason); int8 KV codes at most one unit apart
+CROSS_TOL = 0.06
+#: calls of a timed kernel on the serve_model path's captured inputs
+SERVE_REPS = 20
+
+
+def tree_bytes(tree) -> int:
+    return int(sum(a.numel() * a.element_size() for a in param_leaves(tree)))
+
+
+def timed_decode(model, events: list, finite: list):
+    """``model`` whose ``decode_step`` records a pair of CUDA events a call
+    and folds ``isfinite(logits).all()`` into ``finite[0]`` on the card."""
+    inner = model.decode_step
+
+    def step(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = inner(*args, **kw)
+        stop.record()
+        events.append((start, stop))
+        finite[0] = finite[0] & torch.isfinite(logits).all()
+        return logits, cache
+
+    return dataclasses.replace(model, decode_step=step)
+
+
+def cgm_records(report: list, captured: dict, label: str) -> dict:
+    """The device CGM's kernels on the inputs captured from the expert
+    cache's run: twice, bitwise against the plain versions, timed beside
+    the plain versions, the library calls and the bounds."""
+    (H,) = captured["crm_update"]
+    M = captured["clique_pair_edges"][0]
+    k0 = captured["merge_density"][4]
+    out = {}
+    for name, (kern, plain, lib, bnd) in cgm_cases(captured).items():
+        err = held_equal(report, name, f"captured {label}", kern, plain)
+        out[name] = {
+            "shape": {"h": H.shape[1], "wcap": H.shape[0], "S": M.shape[0],
+                      "n_act": k0},
+            "inputs": "captured", "max_abs_err": err,
+            "ms": cuda_time(kern, SERVE_REPS),
+            "plain_ms": cuda_time(plain, SERVE_REPS),
+            "library_ms": cuda_time(lib, SERVE_REPS) if lib else None,
+            **kernel_bench.device_times(kern, lib, SERVE_REPS), **bnd}
+    return out
+
+
+def gather_record(report: list, g: dict) -> dict:
+    """The expert gather (``packed_lookup`` of a step's cliques of layer 0's
+    ``wi`` rows): twice, bitwise against the plain version, timed beside
+    ``index_select`` and the bound."""
+    table, ids = g["table"], g["ids"]
+
+    def kern():
+        return packed_lookup(table, ids, ids_checked=True)
+
+    def plain():
+        return packed_lookup_plain(table, ids)
+
+    def lib():
+        return table.index_select(0, ids.to(torch.int64))
+
+    err = held_equal(report, "packed_lookup", "serve_model expert gather",
+                     kern, plain)
+    C, omega, d = table.shape
+    R = int(ids.numel())
+    row_bytes = omega * d * table.element_size()
+    return {
+        "shape": {"C": C, "omega": omega, "row": d, "dtype": str(table.dtype),
+                  "R": R, "row_bytes": row_bytes,
+                  "table_bytes": tree_bytes(table),
+                  "path": packed_lookup.last_path},
+        "max_abs_err": err, "ms": cuda_time(kern, SERVE_REPS),
+        "plain_ms": cuda_time(plain, SERVE_REPS),
+        "library_ms": cuda_time(lib, SERVE_REPS),
+        **kernel_bench.device_times(kern, lib, GATHER_CALLS),
+        # the ids, each gathered row read once, the output written once
+        **bound(0.0, PEAK_FP32, 4.0 * R + 2.0 * R * row_bytes)}
+
+
+def step_bytes(cfg, params) -> float:
+    """Bytes a decode step must read: the parameters, less the padded
+    experts' rows of ``wi`` / ``wg`` / ``wo`` (the router never sends a
+    token to experts ``n_experts`` .. ``n_experts_padded - 1``)."""
+    mo = cfg.moe
+    mlp = params["layers"]["mlp"]
+    pad = sum(tree_bytes(mlp[w]) for w in ("wi", "wg", "wo")) * (
+        mo.n_experts_padded - mo.n_experts) / mo.n_experts_padded
+    return tree_bytes(params) - pad
+
+
+def serve_full(seed: int, dev, report: list) -> tuple[dict, dict, tuple]:
+    """(a) + (d): granite-moe-3b-a800m at its full config served through
+    ``BatchedServer`` with the expert cache on its routing tap, the expert
+    gather, the path's kernels held against their plain versions."""
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    requests = moe_example.make_requests(
+        np.random.default_rng(seed), SERVE_REQUESTS, cfg.vocab,
+        *SERVE_PROMPT, SERVE_MAX_NEW)
+    events: list = []
+    finite = [torch.ones((), dtype=torch.bool, device=dev)]
+    reset_launches()
+    capture.INPUTS = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv, mgr, done, topks = moe_example.serve_with_expert_cache(
+        timed_decode(model, events, finite), params, requests,
+        batch_size=SERVE_BATCH, cache_len=SERVE_CACHE, n_hosts=SERVE_HOSTS,
+        t_cg=SERVE_TCG)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    stats = mgr.stats()
+    g = moe_example.expert_gather(mgr, params, topks[-1])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    captured = {k: v[1] for k, v in capture.INPUTS.items()}
+    capture.INPUTS = None
+    for name in CGM_KERNELS + ("packed_lookup",):
+        if launches[name] <= 0:
+            raise AssertionError(f"serve_model: kernel {name} never launched")
+    if len(done) != SERVE_REQUESTS or any(
+            len(r.out) != SERVE_MAX_NEW for r in done):
+        raise AssertionError(f"serve_model: {len(done)} of {SERVE_REQUESTS} "
+                             "requests served in full")
+    if not bool(finite[0]):
+        raise AssertionError("serve_model: non-finite logits")
+    if not all(0 <= t < cfg.vocab for r in done for t in r.out):
+        raise AssertionError("serve_model: a token outside the vocabulary")
+    if g["rows"].shape != (g["ids"].numel(), mgr.params.omega,
+                           cfg.d_model * cfg.moe.d_ff_expert):
+        raise AssertionError(f"serve_model: gathered {tuple(g['rows'].shape)}")
+    if packed_lookup.last_path != "sliced":
+        raise AssertionError(f"serve_model: the gather took the "
+                             f"{packed_lookup.last_path} path, not sliced")
+    if not (np.isfinite(stats.akpc_total) and stats.akpc_total > 0):
+        raise AssertionError(f"serve_model: AKPC total {stats.akpc_total}")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    generated = sum(len(r.out) for r in done)
+    processed = sum(len(r.prompt) - 1 + len(r.out) for r in done)
+    line = {
+        "config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "experts": [cfg.moe.n_experts, cfg.moe.n_experts_padded,
+                    cfg.moe.top_k],
+        "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+        "requests": SERVE_REQUESTS, "prompt_tokens": list(SERVE_PROMPT),
+        "max_new": SERVE_MAX_NEW, "batch_size": SERVE_BATCH,
+        "cache_len": SERVE_CACHE, "steps": srv.steps,
+        "tokens_generated": generated, "tokens_processed": processed,
+        "init_s": init_s, "serve_s": serve_s,
+        "decode_ms_median": float(np.median(step_ms[SERVE_WARMUP:])),
+        "decode_ms_min": float(np.min(step_ms[SERVE_WARMUP:])),
+        "decode_ms_first": step_ms[:SERVE_WARMUP],
+        "tokens_per_s": generated / serve_s,
+        "processed_tokens_per_s": processed / serve_s,
+        "param_bytes": tree_bytes(params), "params": sum(
+            a.numel() for a in param_leaves(params)),
+        "cache_bytes": tree_bytes(srv.cache),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        # the least a decode step reads: every weight once (attention,
+        # the router, the tied embedding for the logits) and the real
+        # experts only; the padded ones never receive a token
+        "step_bound_ms": step_bytes(cfg, params) / PEAK_BYTES * 1e3,
+        "expert_cache": {
+            "hosts": SERVE_HOSTS, "t_cg": SERVE_TCG,
+            "observations": stats.n_observations,
+            "windows": mgr.session.policy.n_windows,
+            "cliques": len(stats.cliques),
+            "clique_list": [list(map(int, c)) for c in stats.cliques],
+            "akpc_total": stats.akpc_total,
+            "nopack_total": stats.nopack_total,
+            "saving_pct": stats.saving_pct},
+        "gather_cliques": int(g["ids"].numel()),
+        "launches": launches,
+    }
+    recs = {"gather": gather_record(report, g),
+            **cgm_records(report, captured, "serve_model expert cache")}
+    del g, captured
+    return line, recs, (model, params)
+
+
+def cross_check(arch: str, seed: int, dev) -> dict:
+    """(b): ``arch`` at full width cut to CROSS_LAYERS layers: the card's
+    ``decode_step`` logits and written cache rows against the port's CPU
+    run on the same weights over CROSS_STEPS steps, staggered positions."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=CROSS_LAYERS)
+    gm, cm = build_model(cfg, device=dev), build_model(cfg, device="cpu")
+    gp = gm.init(seed)
+    cp = tree_map(lambda a: a.cpu(), gp)
+    kv = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    cc = gm.init_cache(CROSS_ROWS, CROSS_CACHE, kv)
+    cc = tree_map(lambda a: (torch.randint(-127, 128, a.shape, generator=gen,
+                                           dtype=torch.int8) if kv ==
+                             torch.int8 else torch.randn(
+                                 a.shape, generator=gen).to(kv)), cc)
+    gc = tree_map(lambda a: a.to(dev), cc)
+    S = cc["layers"]["k"].shape[2]
+    # row 1 ends the cache; a sliding window's ring wraps under it
+    start = [7, S - 2 if cfg.swa_window else S - 1 - CROSS_STEPS]
+    pos = torch.tensor(start, dtype=torch.int32)
+    worst = {"logits": 0.0, "cache": 0.0, "int8_codes": 0}
+    agree = 0
+    for step in range(CROSS_STEPS):
+        tok = torch.randint(0, cfg.vocab, (CROSS_ROWS, 1), generator=gen,
+                            dtype=torch.int32)
+        gl, gc = gm.decode_step(gp, gc, tok.to(dev), pos.to(dev))
+        cl, cc = cm.decode_step(cp, cc, tok, pos)
+        gl = gl.cpu()
+        if not bool(torch.isfinite(gl).all()):
+            raise AssertionError(f"{arch}: non-finite logits on the card")
+        gap = float((gl.float() - cl.float()).abs().max()
+                    / cl.float().abs().max())
+        worst["logits"] = max(worst["logits"], gap)
+        agree += int((gl.argmax(-1) == cl.argmax(-1)).sum())
+        slot = pos % S if cfg.swa_window > 0 else pos
+        for name in ("k", "v"):
+            rows = torch.arange(CROSS_ROWS)
+            g_rows = gc["layers"][name].cpu()[:, rows, slot.long()].float()
+            c_rows = cc["layers"][name][:, rows, slot.long()].float()
+            if kv == torch.int8:
+                worst["int8_codes"] = max(worst["int8_codes"], int(
+                    (g_rows - c_rows).abs().max()))
+            else:
+                worst["cache"] = max(worst["cache"], float(
+                    (g_rows - c_rows).abs().max() / c_rows.abs().max()))
+        pos = pos + 1
+    if worst["logits"] > CROSS_TOL or worst["cache"] > CROSS_TOL \
+            or worst["int8_codes"] > 1:
+        raise AssertionError(f"{arch}: the card differs from the CPU: "
+                             f"{worst} (tolerance {CROSS_TOL}, int8 1)")
+    out = {"layers": f"{CROSS_LAYERS} of {full.n_layers} (cut)",
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "kv_cache": str(kv),
+           "swa_window": cfg.swa_window, "qkv_bias": cfg.qkv_bias,
+           "norm": cfg.norm, "params": sum(a.numel()
+                                            for a in param_leaves(gp)),
+           "positions_start": start, "cache_len": S,
+           "max_gap": worst, "argmax_agree": f"{agree} of "
+           f"{CROSS_STEPS * CROSS_ROWS}"}
+    del gm, gp, gc
+    torch.cuda.empty_cache()
+    return out
+
+
+def staggered_check(model, params) -> dict:
+    """(c): a staggered request's tokens on the card equal its solo run on
+    the card (``tests/test_server_staggered.py``'s contract)."""
+    def solo(prompt):
+        srv = BatchedServer(model, params, batch_size=2, cache_len=64)
+        srv.submit(Request(rid=0, prompt=list(prompt), max_new=6))
+        (r,) = srv.run(max_steps=200)
+        return r.out
+
+    p0, p1 = [1, 2, 3, 4, 5, 6, 7, 8], [9, 8, 7]
+    want0, want1 = solo(p0), solo(p1)
+    srv = BatchedServer(model, params, batch_size=2, cache_len=64)
+    srv.submit(Request(rid=0, prompt=list(p0), max_new=6))
+    for _ in range(4):
+        srv.step()
+    srv.submit(Request(rid=1, prompt=list(p1), max_new=6))
+    done = {r.rid: r.out for r in srv.run(max_steps=200)}
+    if done != {0: want0, 1: want1}:
+        raise AssertionError(f"serve_model: staggered {done} != solo "
+                             f"{want0} / {want1}")
+    return {"solo": [want0, want1], "staggered_equal": True}
+
+
+def serve_model_phase(seed: int, dev) -> tuple[dict, dict]:
+    """The model zoo's decoder family and ``BatchedServer`` on the card:
+    (a) full-width granite-moe-3b-a800m serving with the AKPC expert
+    cache, (b) the six decoder-family configs at full width, cut to
+    CROSS_LAYERS layers, card against CPU, (c) staggered == solo on the
+    card, (d) the path's kernels (the expert cache's CGM kernels and the
+    expert gather) bitwise against their plain versions.
+    Returns the ``serve_model`` line and the kernels' records."""
+    report: list = []
+    line, recs, (model, params) = serve_full(seed, dev, report)
+    line["staggered"] = staggered_check(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    line["card_vs_cpu"] = {a: cross_check(a, seed, dev) for a in CROSS_ARCHS}
+    line["card_vs_cpu_tolerance"] = CROSS_TOL
+    line["checks"] = report
+    print("serve_model " + json.dumps(line), flush=True)
+    return line, recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2896,6 +3247,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = mesh_phase(traces2["hetero-catalog-10k"], args.seed)
     phase("mesh", t0)
+    t0 = time.perf_counter()
+    serve_model, serve_model_recs = serve_model_phase(args.seed, dev)
+    phase("serve_model", t0)
     consumers = {
         **{f"learned {cm}": line["launches"] for cm, line in learned.items()},
         "learned heterogeneous live":
@@ -3012,6 +3366,14 @@ def main() -> int:
         if name == "packed_lookup":
             by_config["expert_cache gather (granite-moe expert rows)"] = \
                 gather_rec
+        if serve_model["launches"][counter]:
+            by_config["serve_model (granite-moe-3b-a800m served)"] = {
+                "launches": serve_model["launches"][counter]}
+        key = "gather" if name == "packed_lookup" else name
+        if key in serve_model_recs:
+            by_config[f"serve_model {key}, captured"] = {
+                **serve_model_recs[key],
+                "launches": serve_model["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches, **rec, **extra,

@@ -3,18 +3,22 @@
 Data and state take the place of weights here: a trace, a pricing
 scenario's arrays, the cache state of a replay engine, a policy's window
 state (the AKPC policy's partition and previous-window CRM, the TTL
-policy's keep-or-not mask) and a learned policy's trained scorer.
+policy's keep-or-not mask) and a learned policy's trained scorer; and the
+model zoo's parameters and KV caches.
 Every function takes plain numpy arrays (read off ``repro``'s objects by
 the caller), so the port never imports ``repro``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.cgm_schedule import partition_from_of
 from .core.cost import CacheEnvironment, CostParams
 from .core.crm import WindowCRM
 from .core.engine import CacheState
+from .core.replay import resolve_device
+from .models.common import dtype_of
 from .traces.loader import Trace
 
 
@@ -96,3 +100,30 @@ def learned_params_from_tree(tree: dict):
     from .learned.model import LearnedParams
 
     return LearnedParams.from_tree(tree)
+
+
+def _tensor_tree(tree, dtype_for, device, path=()):
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v, dtype_for, device, path + (k,))
+                for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device=device,
+                                                 dtype=dtype_for(path))
+
+
+def model_params_from_arrays(cfg, tree: dict, device=None) -> dict:
+    """The reference's nested parameter dict, its leaves as numpy arrays
+    (bf16 leaves upcast to f32 by the caller, which is exact), as the
+    port's parameters under the same names: the router in f32, every
+    other leaf in ``cfg.param_dtype``, on ``device`` (None: CUDA)."""
+    dt = dtype_of(cfg.param_dtype)
+    return _tensor_tree(
+        tree, lambda path: torch.float32 if path[-1] == "router" else dt,
+        resolve_device(device))
+
+
+def cache_from_arrays(tree: dict, dtype, device=None) -> dict:
+    """The reference's decode cache (nested dict of numpy arrays; bf16
+    upcast to f32 by the caller) as the port's, every leaf in ``dtype``
+    (``torch.bfloat16`` or ``torch.int8``, say), on ``device`` (None:
+    CUDA)."""
+    return _tensor_tree(tree, lambda path: dtype, resolve_device(device))

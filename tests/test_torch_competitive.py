@@ -26,6 +26,7 @@ from repro.core import CostParams as RefParams
 from repro.core import ReplayEngine as RefReplayEngine
 
 import repro_torch.core as core
+from repro_torch.core import policy as policy_module
 import repro_torch.traces as traces
 from repro_torch.bench.common import t_cg_for
 from repro_torch.convert import env_from_arrays, trace_from_arrays
@@ -256,7 +257,11 @@ def test_registries_and_bounds_equal_reference():
         ref_core.competitive_bound_env(renv, 3, 4)
 
 
-def test_register_policy_adds_a_factory():
+def test_register_policy_adds_a_factory(monkeypatch):
+    # a copy of the registry for this test alone: a name left registered
+    # would reach every later test in the worker (list_policies parity)
+    monkeypatch.setattr(policy_module, "_REGISTRY",
+                        dict(policy_module._REGISTRY))
     name = "test_torch_competitive_np"
     if name not in core.list_policies():
         core.register_policy(name)(

@@ -11,12 +11,15 @@ imported).  Run on a GPU machine with
 This file imports neither jax nor ``repro``, so it runs where only the
 port's dependencies are installed.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.bench import fig11, kernel_bench
 from repro_torch.bench.kernel_bench import worst_cases
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import (
     CacheEnvironment,
     CostParams,
@@ -27,6 +30,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.replay import run_policy_torch
 from repro_torch.data import PackedDataPipeline, ShardStore
+from repro_torch.examples import serve_moe_expert_cache as example
 from repro_torch.kernels import (
     KERNELS,
     clique_pair_edges,
@@ -50,8 +54,16 @@ from repro_torch.kernels.merge_step import merge_density_lanes_plain
 from repro_torch.kernels.packed_lookup import CliqueLookup, clique_lookup
 from repro_torch.learned import Scorer, TrainConfig, train_policy, warm_params
 from repro_torch.learned.train import adamw_config, train_steps
+from repro_torch.models import build_model
+from repro_torch.models.common import tree_map
+from repro_torch.models.mlp import init_moe, moe_forward
 from repro_torch.optim.adamw import tree_leaves
-from repro_torch.serving import ExpertCacheManager, LiveServingEngine
+from repro_torch.serving import (
+    BatchedServer,
+    ExpertCacheManager,
+    LiveServingEngine,
+    Request,
+)
 from repro_torch.serving import live as live_module
 from repro_torch.traces import SynthConfig, synth_trace
 
@@ -1305,3 +1317,111 @@ def test_mesh_on_distinct_cards(cuda_device):
     for p, a, b in zip(pts, base, swept):
         assert np.array_equal(a.state.E, b.state.E), p.tag
         assert np.isclose(a.total, b.total, rtol=1e-9, atol=0.0), p.tag
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's decoder family and BatchedServer
+# ---------------------------------------------------------------------------
+#: the decoder-family smoke configs
+DECODERS = ["qwen2_5_3b", "codeqwen1_5_7b", "h2o_danube_1_8b",
+            "command_r_35b", "granite_moe_3b_a800m", "phi_3_vision_4_2b"]
+#: the card's logits against the CPU's, as a share of the CPU's largest:
+#: f32 products summed in other orders (TF32 off); bf16 keeps 8 bits
+MODEL_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DECODERS)
+def test_model_decode_on_card_equals_cpu(cuda_device, arch, dtype):
+    """A smoke model's ``decode_step`` on the card against the port's CPU
+    run on the same weights: 5 steps at staggered positions, the cache in
+    the config's KV dtype."""
+    cfg = get_smoke_config(arch)
+    cfg = _f32(cfg) if dtype == "float32" else cfg
+    gm, cm = build_model(cfg, device=cuda_device), build_model(cfg,
+                                                              device="cpu")
+    cp = cm.init(0)
+    gp = tree_map(lambda a: a.to(cuda_device), cp)
+    kv = torch.int8 if cfg.kv_cache_dtype == "int8" else getattr(torch, dtype)
+    cc, gc = cm.init_cache(3, 40, kv), gm.init_cache(3, 40, kv)
+    rng = np.random.default_rng(3)
+    pos = torch.tensor([0, 6, 33], dtype=torch.int32)
+    for _ in range(5):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 1)))
+        gl, gc = gm.decode_step(gp, gc, tok.to(cuda_device),
+                                pos.to(cuda_device))
+        cl, cc = cm.decode_step(cp, cc, tok, pos)
+        gap = (gl.cpu().float() - cl.float()).abs().max() / cl.float().abs().max()
+        assert float(gap) <= MODEL_TOL[dtype], float(gap)
+        pos = pos + 1
+
+
+def test_moe_combine_repeats_bit_for_bit(cuda_device):
+    """One full-width granite MoE layer twice on the same tokens: the same
+    bits (the combine sums each token's k rows in a fixed order)."""
+    cfg = get_config("granite_moe_3b_a800m")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = {k: v[0] for k, v in init_moe(gen, cfg, 1, torch.bfloat16).items()}
+    x = torch.randn((4, 16, cfg.d_model), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    y1, a1 = moe_forward(p, x, cfg)
+    y2, a2 = moe_forward(p, x, cfg)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    yc, _ = moe_forward({k: v.cpu() for k, v in p.items()}, x.cpu(), cfg)
+    gap = (y1.cpu().float() - yc.float()).abs().max() / yc.float().abs().max()
+    assert float(gap) <= MODEL_TOL["bfloat16"]
+
+
+def test_expert_gather_through_packed_lookup(cuda_device):
+    """``packed_tables`` -> ``packed_lookup`` of layer 0's ``wi`` at
+    granite's expert width (multi-MB rows: ``sliced``) == the plain
+    gather, bit for bit."""
+    rng = np.random.default_rng(4)
+    mgr = ExpertCacheManager(n_experts=40, n_hosts=2, t_cg=24.0,
+                             device=cuda_device)
+    for _ in range(60):
+        g = int(rng.integers(0, 8))
+        mgr.observe(rng.integers(5 * g, 5 * g + 5, size=(8, 8)), host=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    wi = torch.randn((1, 48, 1536, 512), generator=gen, device=cuda_device
+                     ).to(torch.bfloat16)
+    params = {"layers": {"mlp": {"wi": wi}}}
+    before = packed_lookup.launches
+    out = example.expert_gather(mgr, params, np.arange(10))
+    assert packed_lookup.launches == before + 1
+    assert packed_lookup.last_path == "sliced"
+    assert torch.equal(out["rows"], packed_lookup_plain(out["table"],
+                                                        out["ids"]))
+    rows = wi[0].reshape(48, -1)
+    for r, c in enumerate(out["ids"].tolist()):
+        for slot in range(out["table"].shape[1]):
+            members = np.flatnonzero((out["where"][:, 0] == c)
+                                     & (out["where"][:, 1] == slot))
+            if members.size:
+                assert torch.equal(out["rows"][r, slot], rows[members[0]])
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "granite_moe_3b_a800m"])
+def test_server_staggered_equals_solo_on_card(cuda_device, arch):
+    model = build_model(get_smoke_config(arch), device=cuda_device)
+    params = model.init(0)
+
+    def solo(prompt):
+        srv = BatchedServer(model, params, batch_size=2, cache_len=64)
+        srv.submit(Request(rid=0, prompt=list(prompt), max_new=6))
+        (r,) = srv.run(max_steps=200)
+        return r.out
+
+    p0, p1 = [1, 2, 3, 4, 5, 6, 7, 8], [9, 8, 7]
+    srv = BatchedServer(model, params, batch_size=2, cache_len=64)
+    srv.submit(Request(rid=0, prompt=list(p0), max_new=6))
+    for _ in range(4):
+        srv.step()
+    srv.submit(Request(rid=1, prompt=list(p1), max_new=6))
+    done = {r.rid: r.out for r in srv.run(max_steps=200)}
+    assert done == {0: solo(p0), 1: solo(p1)}
