@@ -184,6 +184,24 @@
     configs at full width cut to 2 layers, the card's ``decode_step``
     logits and cache rows within ``CROSS_TOL`` of the port's CPU run on
     the same weights over 4 steps at staggered positions;
+13g. ``serve_families``: the remaining model families.  zamba2-1.2b at
+    its full config (38 layers: 6 groups of 6 mamba-2 layers under one
+    shared attention block, then 2; d 2048, d_state 64, bf16, seeded
+    weights) serves serve_model's 16 requests (batch 8, cache 256), with
+    decode ms a step against the step's byte bound (weights, the f32 SSM
+    state read and written, the shared block's K/V); deepseek-v2 at full
+    width cut to its dense prefix layer and one MoE layer (MLA, 160
+    routed experts top-6 and 2 shared, vocab 102,400) serves the same
+    requests with the AKPC ``ExpertCacheManager`` (160 experts, 2 hosts,
+    T_CG 24) on the MoE layer's routing, then gathers the last step's
+    cliques of that layer's ``wi`` (15.7 MB rows, ``sliced``): every
+    kernel of the path launched, held bitwise against its plain version
+    on the captured inputs and timed; xlstm-125m and whisper-tiny at
+    their full configs, zamba2 at full width cut to 8 layers and the
+    2-layer deepseek-v2, ``prefill`` then 4 ``decode_step``s at staggered
+    positions on the card within ``CROSS_TOL`` of the port's CPU run on
+    the same weights (logits and every cache or state leaf); staggered ==
+    solo on the card for zamba2, xlstm and whisper;
 14. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
@@ -2820,9 +2838,9 @@ def cgm_records(report: list, captured: dict, label: str) -> dict:
     return out
 
 
-def gather_record(report: list, g: dict) -> dict:
-    """The expert gather (``packed_lookup`` of a step's cliques of layer 0's
-    ``wi`` rows): twice, bitwise against the plain version, timed beside
+def gather_record(report: list, g: dict, label: str) -> dict:
+    """The expert gather (``packed_lookup`` of a step's cliques of the first
+    MoE layer's ``wi`` rows): twice, bitwise against the plain version, timed beside
     ``index_select`` and the bound."""
     table, ids = g["table"], g["ids"]
 
@@ -2835,8 +2853,7 @@ def gather_record(report: list, g: dict) -> dict:
     def lib():
         return table.index_select(0, ids.to(torch.int64))
 
-    err = held_equal(report, "packed_lookup", "serve_model expert gather",
-                     kern, plain)
+    err = held_equal(report, "packed_lookup", label, kern, plain)
     C, omega, d = table.shape
     R = int(ids.numel())
     row_bytes = omega * d * table.element_size()
@@ -2864,33 +2881,89 @@ def step_bytes(cfg, params) -> float:
     return tree_bytes(params) - pad
 
 
-def serve_full(seed: int, dev, report: list) -> tuple[dict, dict, tuple]:
-    """(a) + (d): granite-moe-3b-a800m at its full config served through
-    ``BatchedServer`` with the expert cache on its routing tap, the expert
-    gather, the path's kernels held against their plain versions."""
-    cfg = get_config(SERVE_ARCH)
+def serve_requests(model, params, seed: int, tag: str, **kw):
+    """SERVE_REQUESTS requests of SERVE_PROMPT prompt tokens and
+    SERVE_MAX_NEW new tokens through ``BatchedServer`` (batch SERVE_BATCH,
+    cache SERVE_CACHE), or, given the expert cache's ``n_hosts`` and
+    ``t_cg``, through the example's server with the cache on its routing
+    tap; a decode step timed by CUDA events.  Gates: every request in full,
+    finite logits, tokens in the vocabulary.  Returns (line, server, the
+    manager and per-step top-k or None)."""
+    cfg = model.cfg
+    requests = moe_example.make_requests(
+        np.random.default_rng(seed), SERVE_REQUESTS, cfg.vocab,
+        *SERVE_PROMPT, SERVE_MAX_NEW)
+    events: list = []
+    finite = [torch.ones((), dtype=torch.bool, device=model.device)]
+    timed = timed_decode(model, events, finite)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kw:
+        srv, mgr, done, topks = moe_example.serve_with_expert_cache(
+            timed, params, requests, batch_size=SERVE_BATCH,
+            cache_len=SERVE_CACHE, **kw)
+        extra = (mgr, topks)
+    else:
+        srv = BatchedServer(timed, params, batch_size=SERVE_BATCH,
+                            cache_len=SERVE_CACHE)
+        for r in requests:
+            srv.submit(r)
+        done, extra = srv.run(), None
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    if len(done) != SERVE_REQUESTS or any(
+            len(r.out) != SERVE_MAX_NEW for r in done):
+        raise AssertionError(f"{tag}: {len(done)} of {SERVE_REQUESTS} "
+                             "requests served in full")
+    if not bool(finite[0]):
+        raise AssertionError(f"{tag}: non-finite logits")
+    if not all(0 <= t < cfg.vocab for r in done for t in r.out):
+        raise AssertionError(f"{tag}: a token outside the vocabulary")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    generated = sum(len(r.out) for r in done)
+    processed = sum(len(r.prompt) - 1 + len(r.out) for r in done)
+    line = {
+        "config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab,
+        "dtype": cfg.param_dtype, "requests": SERVE_REQUESTS,
+        "prompt_tokens": list(SERVE_PROMPT), "max_new": SERVE_MAX_NEW,
+        "batch_size": SERVE_BATCH, "cache_len": SERVE_CACHE,
+        "steps": srv.steps, "tokens_generated": generated,
+        "tokens_processed": processed, "serve_s": serve_s,
+        "decode_ms_median": float(np.median(step_ms[SERVE_WARMUP:])),
+        "decode_ms_min": float(np.min(step_ms[SERVE_WARMUP:])),
+        "decode_ms_first": step_ms[:SERVE_WARMUP],
+        "tokens_per_s": generated / serve_s,
+        "processed_tokens_per_s": processed / serve_s,
+        "params": sum(a.numel() for a in param_leaves(params)),
+        "param_bytes": tree_bytes(params), "cache_bytes": tree_bytes(srv.cache),
+    }
+    return line, srv, extra
+
+
+def built(cfg, seed: int, dev):
+    """``cfg``'s model on ``dev`` with seeded weights, the peak memory
+    counter reset first; returns (model, params, seconds)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
     params = model.init(seed)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    requests = moe_example.make_requests(
-        np.random.default_rng(seed), SERVE_REQUESTS, cfg.vocab,
-        *SERVE_PROMPT, SERVE_MAX_NEW)
-    events: list = []
-    finite = [torch.ones((), dtype=torch.bool, device=dev)]
+    return model, params, time.perf_counter() - t0
+
+
+def serve_moe(cfg, seed: int, dev, report: list,
+              tag: str) -> tuple[dict, dict, tuple]:
+    """An MoE config served through ``BatchedServer`` with the AKPC expert
+    cache on its first MoE layer's routing tap, then the expert gather of
+    the last step's cliques; the path's kernels launched, held against
+    their plain versions on the captured inputs and timed."""
+    model, params, init_s = built(cfg, seed, dev)
     reset_launches()
     capture.INPUTS = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    srv, mgr, done, topks = moe_example.serve_with_expert_cache(
-        timed_decode(model, events, finite), params, requests,
-        batch_size=SERVE_BATCH, cache_len=SERVE_CACHE, n_hosts=SERVE_HOSTS,
-        t_cg=SERVE_TCG)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    line, srv, (mgr, topks) = serve_requests(
+        model, params, seed, tag, n_hosts=SERVE_HOSTS, t_cg=SERVE_TCG)
     stats = mgr.stats()
     g = moe_example.expert_gather(mgr, params, topks[-1])
     torch.cuda.synchronize()
@@ -2899,50 +2972,25 @@ def serve_full(seed: int, dev, report: list) -> tuple[dict, dict, tuple]:
     capture.INPUTS = None
     for name in CGM_KERNELS + ("packed_lookup",):
         if launches[name] <= 0:
-            raise AssertionError(f"serve_model: kernel {name} never launched")
-    if len(done) != SERVE_REQUESTS or any(
-            len(r.out) != SERVE_MAX_NEW for r in done):
-        raise AssertionError(f"serve_model: {len(done)} of {SERVE_REQUESTS} "
-                             "requests served in full")
-    if not bool(finite[0]):
-        raise AssertionError("serve_model: non-finite logits")
-    if not all(0 <= t < cfg.vocab for r in done for t in r.out):
-        raise AssertionError("serve_model: a token outside the vocabulary")
+            raise AssertionError(f"{tag}: kernel {name} never launched")
     if g["rows"].shape != (g["ids"].numel(), mgr.params.omega,
                            cfg.d_model * cfg.moe.d_ff_expert):
-        raise AssertionError(f"serve_model: gathered {tuple(g['rows'].shape)}")
+        raise AssertionError(f"{tag}: gathered {tuple(g['rows'].shape)}")
     if packed_lookup.last_path != "sliced":
-        raise AssertionError(f"serve_model: the gather took the "
+        raise AssertionError(f"{tag}: the gather took the "
                              f"{packed_lookup.last_path} path, not sliced")
     if not (np.isfinite(stats.akpc_total) and stats.akpc_total > 0):
-        raise AssertionError(f"serve_model: AKPC total {stats.akpc_total}")
-    step_ms = [a.elapsed_time(b) for a, b in events]
-    generated = sum(len(r.out) for r in done)
-    processed = sum(len(r.prompt) - 1 + len(r.out) for r in done)
-    line = {
-        "config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "heads": [cfg.n_heads, cfg.n_kv_heads],
+        raise AssertionError(f"{tag}: AKPC total {stats.akpc_total}")
+    line.update({
+        "init_s": init_s,
         "experts": [cfg.moe.n_experts, cfg.moe.n_experts_padded,
-                    cfg.moe.top_k],
-        "vocab": cfg.vocab, "dtype": cfg.param_dtype,
-        "requests": SERVE_REQUESTS, "prompt_tokens": list(SERVE_PROMPT),
-        "max_new": SERVE_MAX_NEW, "batch_size": SERVE_BATCH,
-        "cache_len": SERVE_CACHE, "steps": srv.steps,
-        "tokens_generated": generated, "tokens_processed": processed,
-        "init_s": init_s, "serve_s": serve_s,
-        "decode_ms_median": float(np.median(step_ms[SERVE_WARMUP:])),
-        "decode_ms_min": float(np.min(step_ms[SERVE_WARMUP:])),
-        "decode_ms_first": step_ms[:SERVE_WARMUP],
-        "tokens_per_s": generated / serve_s,
-        "processed_tokens_per_s": processed / serve_s,
-        "param_bytes": tree_bytes(params), "params": sum(
-            a.numel() for a in param_leaves(params)),
-        "cache_bytes": tree_bytes(srv.cache),
+                    cfg.moe.top_k, cfg.moe.n_shared],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         # the least a decode step reads: every weight once (attention,
         # the router, the tied embedding for the logits) and the real
-        # experts only; the padded ones never receive a token
-        "step_bound_ms": step_bytes(cfg, params) / PEAK_BYTES * 1e3,
+        # experts only (the padded ones never receive a token), the cache
+        "step_bound_ms": (step_bytes(cfg, params) + tree_bytes(srv.cache))
+        / PEAK_BYTES * 1e3,
         "expert_cache": {
             "hosts": SERVE_HOSTS, "t_cg": SERVE_TCG,
             "observations": stats.n_observations,
@@ -2953,11 +3001,13 @@ def serve_full(seed: int, dev, report: list) -> tuple[dict, dict, tuple]:
             "nopack_total": stats.nopack_total,
             "saving_pct": stats.saving_pct},
         "gather_cliques": int(g["ids"].numel()),
+        "gather_table_bytes": tree_bytes(g["table"]),
         "launches": launches,
-    }
-    recs = {"gather": gather_record(report, g),
-            **cgm_records(report, captured, "serve_model expert cache")}
-    del g, captured
+    })
+    recs = {"gather": gather_record(report, g, f"{tag} expert gather"),
+            **cgm_records(report, captured, f"{tag} expert cache")}
+    del g, captured, srv
+    torch.cuda.empty_cache()
     return line, recs, (model, params)
 
 
@@ -3025,9 +3075,9 @@ def cross_check(arch: str, seed: int, dev) -> dict:
     return out
 
 
-def staggered_check(model, params) -> dict:
-    """(c): a staggered request's tokens on the card equal its solo run on
-    the card (``tests/test_server_staggered.py``'s contract)."""
+def staggered_check(model, params, tag: str = "serve_model") -> dict:
+    """A staggered request's tokens on the card equal its solo run on the
+    card (``tests/test_server_staggered.py``'s contract)."""
     def solo(prompt):
         srv = BatchedServer(model, params, batch_size=2, cache_len=64)
         srv.submit(Request(rid=0, prompt=list(prompt), max_new=6))
@@ -3043,7 +3093,7 @@ def staggered_check(model, params) -> dict:
     srv.submit(Request(rid=1, prompt=list(p1), max_new=6))
     done = {r.rid: r.out for r in srv.run(max_steps=200)}
     if done != {0: want0, 1: want1}:
-        raise AssertionError(f"serve_model: staggered {done} != solo "
+        raise AssertionError(f"{tag}: staggered {done} != solo "
                              f"{want0} / {want1}")
     return {"solo": [want0, want1], "staggered_equal": True}
 
@@ -3057,7 +3107,8 @@ def serve_model_phase(seed: int, dev) -> tuple[dict, dict]:
     expert gather) bitwise against their plain versions.
     Returns the ``serve_model`` line and the kernels' records."""
     report: list = []
-    line, recs, (model, params) = serve_full(seed, dev, report)
+    line, recs, (model, params) = serve_moe(get_config(SERVE_ARCH), seed,
+                                            dev, report, "serve_model")
     line["staggered"] = staggered_check(model, params)
     del model, params
     torch.cuda.empty_cache()
@@ -3065,6 +3116,202 @@ def serve_model_phase(seed: int, dev) -> tuple[dict, dict]:
     line["card_vs_cpu_tolerance"] = CROSS_TOL
     line["checks"] = report
     print("serve_model " + json.dumps(line), flush=True)
+    return line, recs
+
+
+#: the serve_families phase: zamba2-1.2b at its full config served as
+#: serve_model serves granite (the same requests, batch and cache); the
+#: MLA config at full width cut to MLA_LAYERS layers (its dense prefix
+#: layer and one MoE layer) served with the expert cache on that MoE
+#: layer's routing
+HYBRID_ARCH, MLA_ARCH, MLA_LAYERS = "zamba2_1_2b", "deepseek_v2_236b", 2
+#: card against CPU on the same weights: each family's layers (None: the
+#: full config; zamba2 cut to one shared-attention group and its 2
+#: trailing mamba layers), CROSS_ROWS rows, a prefill of one chunk of
+#: tokens (the recurrent archs' chunk; FAMILY_PROMPT tokens for MLA,
+#: FAMILY_FRAMES seeded frames for whisper), then CROSS_STEPS decode
+#: steps at staggered positions over a seeded cache of CROSS_CACHE
+#: positions (whisper: its prefill's cross K/V)
+FAMILY_CROSS = {"xlstm_125m": None, "whisper_tiny": None,
+                "zamba2_1_2b": 8, "deepseek_v2_236b": MLA_LAYERS}
+FAMILY_PROMPT, FAMILY_FRAMES = 16, 256
+#: staggered == solo on the card: the reference's server test's archs
+STAGGER_ARCHS = ("zamba2_1_2b", "xlstm_125m", "whisper_tiny")
+#: archs whose bf16 prefill over one chunk is chaotic: xlstm-125m's 12
+#: recurrent layers over 256 tokens turn one bf16 rounding into a logit
+#: gap of several per cent (on the CPU, rounding one GEMM of the first
+#: layer exactly instead of after an f32 sum moved the last logits by 4-9%
+#: of the largest; bf16 against f32 8.2%; the card against the CPU 8.1%).
+#: Such a gap says nothing of the port, so their prefill is held at
+#: CROSS_TOL in f32 (the same code at the full config's shapes) and the
+#: bf16 gap is printed beside the CPU's own bf16-against-f32 gap
+F32_PREFILL = ("xlstm_125m",)
+
+
+def serve_hybrid(seed: int, dev) -> tuple[dict, tuple]:
+    """(a) + (d): zamba2-1.2b at its full config served through
+    ``BatchedServer``; staggered == solo on the card."""
+    cfg = get_config(HYBRID_ARCH)
+    model, params, init_s = built(cfg, seed, dev)
+    line, srv, _ = serve_requests(model, params, seed, "serve_families")
+    cache = srv.cache
+    state = tree_bytes({k: cache[k] for k in ("ssm", "conv")})
+    line.update({
+        "init_s": init_s, "ssm": dataclasses.asdict(cfg.ssm),
+        "state_bytes": state,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        # the least a decode step moves: every weight read once (the tied
+        # embedding for the logits), the recurrent state (f32 SSM state
+        # and conv window) read and written, the shared block's K/V read
+        "step_bytes": tree_bytes(params) + 2 * state + tree_bytes(
+            cache["attn"]),
+    })
+    line["step_bound_ms"] = line["step_bytes"] / PEAK_BYTES * 1e3
+    line["staggered"] = staggered_check(model, params, "serve_families")
+    return line, (model, params)
+
+
+def serve_mla(seed: int, dev, report: list) -> tuple[dict, dict, tuple]:
+    """(b): deepseek-v2 at full width cut to MLA_LAYERS layers served as
+    ``serve_moe`` serves (the expert cache at 160 experts)."""
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    line, recs, (model, params) = serve_moe(cfg, seed, dev, report,
+                                            "serve_families")
+    m = cfg.mla
+    line.update({
+        "layers": f"{MLA_LAYERS} of {get_config(MLA_ARCH).n_layers} (cut: "
+        "the dense prefix layer and one MoE layer)",
+        "mla": dataclasses.asdict(m),
+        # BatchedServer's cache is bf16
+        "latent_cache_bytes_a_token_a_layer":
+            (m.kv_lora_rank + m.rope_head_dim) * torch.bfloat16.itemsize})
+    return line, recs, (model, params)
+
+
+def family_cross(arch: str, model, params, seed: int) -> dict:
+    """(c): the card's ``prefill`` and CROSS_STEPS ``decode_step``s against
+    the port's CPU run on the same weights: logits and every cache or
+    state leaf within CROSS_TOL of the CPU's largest magnitude."""
+    cfg = model.cfg
+    dev = model.device
+    cm = build_model(cfg, device="cpu")
+    cp = tree_map(lambda a: a.cpu(), params)
+    gen = torch.Generator().manual_seed(seed)
+    rec = (cfg.ssm or cfg.xlstm)
+    S = rec.chunk if rec else FAMILY_PROMPT
+    toks = torch.randint(0, cfg.vocab, (CROSS_ROWS, S), generator=gen)
+    batch, kw = {"tokens": toks, "labels": toks}, {}
+    if cfg.family == "encdec":
+        batch = {"frames": torch.randn((CROSS_ROWS, FAMILY_FRAMES,
+                                        cfg.d_model), generator=gen)}
+        kw["cache_len"] = CROSS_CACHE
+    worst = {"logits": 0.0, "cache": 0.0}
+
+    def gap(g, c) -> float:
+        c = c.float()
+        return float((g.cpu().float() - c).abs().max()
+                     / c.abs().max().clamp_min(1e-30))
+
+    gl, gpre = model.prefill(params, {k: v.to(dev) for k, v in
+                                      batch.items()}, **kw)
+    cl, cpre = cm.prefill(cp, batch, **kw)
+    worst["prefill_logits"] = gap(gl, cl)
+    noise = {}
+    if arch in F32_PREFILL:
+        fcfg = dataclasses.replace(cfg, param_dtype="float32",
+                                   compute_dtype="float32")
+        fl = {}
+        for where, ps in ((dev, params), ("cpu", cp)):
+            fl[where] = build_model(fcfg, device=where).prefill(
+                tree_map(lambda a: a.float(), ps),
+                {k: v.to(where) for k, v in batch.items()}, **kw)[0]
+        noise = {"prefill_logits_bf16": worst.pop("prefill_logits"),
+                 "cpu_bf16_against_f32": gap(cl, fl["cpu"])}
+        worst["prefill_logits_f32"] = gap(fl[dev], fl["cpu"])
+    worst["prefill_cache"] = max(
+        [gap(g, c) for g, c in zip(param_leaves(gpre), param_leaves(cpre))
+         if bool(c.any())], default=0.0)
+    cc = tree_map(lambda a: (torch.randn(a.shape, generator=gen) * 0.5).to(
+        a.dtype), cm.init_cache(CROSS_ROWS, CROSS_CACHE, torch.bfloat16))
+    if cfg.family == "encdec":
+        cc["cross"] = cpre["cross"]
+    del gpre, cpre
+    gc = tree_map(lambda a: a.to(dev), cc)
+    pos = torch.tensor([7, CROSS_CACHE - 1 - CROSS_STEPS], dtype=torch.int32)
+    agree = 0
+    for _ in range(CROSS_STEPS):
+        tok = torch.randint(0, cfg.vocab, (CROSS_ROWS, 1), generator=gen)
+        gl, gc = model.decode_step(params, gc, tok.to(dev), pos.to(dev))
+        cl, cc = cm.decode_step(cp, cc, tok, pos)
+        if not bool(torch.isfinite(gl).all()):
+            raise AssertionError(f"{arch}: non-finite logits on the card")
+        worst["logits"] = max(worst["logits"], gap(gl, cl))
+        agree += int((gl.cpu().argmax(-1) == cl.argmax(-1)).sum())
+        worst["cache"] = max(worst["cache"], max(
+            gap(g, c) for g, c in zip(param_leaves(gc), param_leaves(cc))))
+        pos = pos + 1
+    if max(worst.values()) > CROSS_TOL:
+        raise AssertionError(f"{arch}: the card differs from the CPU: "
+                             f"{worst} (tolerance {CROSS_TOL})")
+    full = get_config(arch)
+    del gc, cp, cm
+    return {"layers": (f"{cfg.n_layers} of {full.n_layers} (cut)"
+                       if cfg.n_layers != full.n_layers else cfg.n_layers),
+            "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "params": sum(a.numel() for a in param_leaves(params)),
+            "prefill": {"rows": CROSS_ROWS, **(
+                {"frames": FAMILY_FRAMES} if cfg.family == "encdec"
+                else {"tokens": S})},
+            "positions_start": [7, CROSS_CACHE - 1 - CROSS_STEPS],
+            "cache_len": CROSS_CACHE, "steps": CROSS_STEPS,
+            "max_gap": worst, **({"bf16_prefill": noise} if noise else {}),
+            "argmax_agree": f"{agree} of {CROSS_STEPS * CROSS_ROWS}"}
+
+
+def serve_families_phase(seed: int, dev) -> tuple[dict, dict]:
+    """The remaining model families on the card: (a) full zamba2-1.2b
+    served, (b) deepseek-v2 at full width, 2 layers, served with the AKPC
+    expert cache at 160 experts and its kernels held bitwise, (c) the four
+    families card against CPU, (d) staggered == solo for the reference's
+    server-test archs.  Returns the ``serve_families`` line and the
+    kernels' records."""
+    report: list = []
+    cross: dict = {}
+    stagger: dict = {}
+    line: dict = {}
+    times: dict = {}
+    t0 = time.perf_counter()
+    line["serve-deepseek-v2-2l"], recs, (model, params) = serve_mla(
+        seed, dev, report)
+    cross[MLA_ARCH] = family_cross(MLA_ARCH, model, params, seed)
+    del model, params
+    torch.cuda.empty_cache()
+    times["deepseek"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["serve-zamba2"], (model, params) = serve_hybrid(seed, dev)
+    stagger[HYBRID_ARCH] = line["serve-zamba2"].pop("staggered")
+    del model, params
+    torch.cuda.empty_cache()
+    times["zamba2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for arch in ("zamba2_1_2b", "xlstm_125m", "whisper_tiny"):
+        cfg = get_config(arch)
+        if FAMILY_CROSS[arch]:
+            cfg = dataclasses.replace(cfg, n_layers=FAMILY_CROSS[arch])
+        model = build_model(cfg, device=dev)
+        params = model.init(seed)
+        cross[arch] = family_cross(arch, model, params, seed)
+        if arch in STAGGER_ARCHS and arch not in stagger:
+            stagger[arch] = staggered_check(model, params, "serve_families")
+        del model, params
+        torch.cuda.empty_cache()
+    times["card_vs_cpu"] = time.perf_counter() - t0
+    line["card_vs_cpu"] = cross
+    line["card_vs_cpu_tolerance"] = CROSS_TOL
+    line["staggered"] = stagger
+    line["part_s"] = times
+    line["checks"] = report
+    print("serve_families " + json.dumps(line), flush=True)
     return line, recs
 
 
@@ -3250,6 +3497,10 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_model, serve_model_recs = serve_model_phase(args.seed, dev)
     phase("serve_model", t0)
+    t0 = time.perf_counter()
+    families, families_recs = serve_families_phase(args.seed, dev)
+    phase("serve_families", t0)
+    served_mla = families["serve-deepseek-v2-2l"]["launches"]
     consumers = {
         **{f"learned {cm}": line["launches"] for cm, line in learned.items()},
         "learned heterogeneous live":
@@ -3374,6 +3625,12 @@ def main() -> int:
             by_config[f"serve_model {key}, captured"] = {
                 **serve_model_recs[key],
                 "launches": serve_model["launches"][name]}
+        if served_mla[counter]:
+            by_config["serve_families (deepseek-v2, 2 layers, served)"] = {
+                "launches": served_mla[counter]}
+        if key in families_recs:
+            by_config[f"serve_families {key}, captured"] = {
+                **families_recs[key], "launches": served_mla[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches, **rec, **extra,

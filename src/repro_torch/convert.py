@@ -110,20 +110,32 @@ def _tensor_tree(tree, dtype_for, device, path=()):
                                                  dtype=dtype_for(path))
 
 
+#: parameter leaves the reference keeps in f32 whatever ``param_dtype``
+#: says: the MoE router and Mamba-2's ``A_log`` / ``dt_bias`` / ``D``
+F32_PARAMS = frozenset({"router", "A_log", "dt_bias", "D"})
+#: cache leaves the reference keeps in f32 whatever the cache dtype: the
+#: SSM state, the mLSTM memory and the sLSTM's ``c`` / ``n``
+F32_CACHE = frozenset({"ssm", "mlstm", "slstm_c", "slstm_n"})
+
+
 def model_params_from_arrays(cfg, tree: dict, device=None) -> dict:
     """The reference's nested parameter dict, its leaves as numpy arrays
     (bf16 leaves upcast to f32 by the caller, which is exact), as the
-    port's parameters under the same names: the router in f32, every
-    other leaf in ``cfg.param_dtype``, on ``device`` (None: CUDA)."""
+    port's parameters under the same names: the leaves of
+    :data:`F32_PARAMS` in f32, every other leaf in ``cfg.param_dtype``, on
+    ``device`` (None: CUDA)."""
     dt = dtype_of(cfg.param_dtype)
     return _tensor_tree(
-        tree, lambda path: torch.float32 if path[-1] == "router" else dt,
+        tree, lambda path: torch.float32 if path[-1] in F32_PARAMS else dt,
         resolve_device(device))
 
 
 def cache_from_arrays(tree: dict, dtype, device=None) -> dict:
-    """The reference's decode cache (nested dict of numpy arrays; bf16
-    upcast to f32 by the caller) as the port's, every leaf in ``dtype``
+    """The reference's decode cache or recurrent state (nested dict of
+    numpy arrays; bf16 upcast to f32 by the caller) as the port's: the
+    leaves of :data:`F32_CACHE` in f32, every other leaf in ``dtype``
     (``torch.bfloat16`` or ``torch.int8``, say), on ``device`` (None:
     CUDA)."""
-    return _tensor_tree(tree, lambda path: dtype, resolve_device(device))
+    return _tensor_tree(
+        tree, lambda path: torch.float32 if path[-1] in F32_CACHE else dtype,
+        resolve_device(device))

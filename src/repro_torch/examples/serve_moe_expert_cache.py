@@ -4,21 +4,27 @@ transfer-cost saving against per-expert fetching, and gathers a step's
 expert cliques from the packed weight table.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_moe_expert_cache [--device cpu]
+    PYTHONPATH=src python -m repro_torch.examples.serve_moe_expert_cache \
+        --arch deepseek_v2_236b [--layers 2]
 
 The port of ``examples/serve_moe_expert_cache.py``: the same routing tap
-(layer 0's router on the served tokens' embeddings), here on the model's
+(the first MoE layer's router on the served tokens' embeddings; for
+deepseek-v2 the layer after its dense prefix), here on the model's
 device, feeding an :class:`ExpertCacheManager` on that device; then
 ``packed_tables`` and a :func:`repro_torch.kernels.packed_lookup` gather
-of layer 0's ``wi``.
+of that layer's ``wi``.  ``--arch`` picks an MoE config (granite-moe, the
+reference's, or deepseek-v2), served at its smoke config, or with
+``--layers N`` at its full width cut to N layers.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
 
-from ..configs import get_smoke_config
+from ..configs import get_config, get_smoke_config
 from ..kernels import packed_lookup
 from ..models.api import build_model
 from ..serving import BatchedServer, ExpertCacheManager, Request
@@ -35,8 +41,9 @@ def make_requests(rng: np.random.Generator, n: int, vocab: int, prompt_lo: int,
 
 def routing_tap(params, cfg, mgr: ExpertCacheManager, host: int = 0,
                 record: list | None = None):
-    """Layer 0's router top-k of each step's input tokens, fed to ``mgr``
-    (and kept in ``record``, one (B, k) array a step, when given)."""
+    """The first MoE layer's router top-k of each step's input tokens, fed
+    to ``mgr`` (and kept in ``record``, one (B, k) array a step, when
+    given)."""
     router0 = params["layers"]["mlp"]["router"][0]          # (d, E) f32
     embed = params["embed"]
 
@@ -73,7 +80,7 @@ def serve_with_expert_cache(model, params, requests, *, batch_size: int,
 
 
 def expert_gather(mgr: ExpertCacheManager, params, topk: np.ndarray) -> dict:
-    """Pack layer 0's ``wi`` (one row an expert) clique by clique with
+    """Pack the first MoE layer's ``wi`` (one row an expert) clique by clique with
     ``packed_tables`` and gather the cliques of ``topk``'s experts with
     ``packed_lookup`` on the weights' device.  bf16 rows travel through
     numpy as their int16 bit patterns (a byte copy)."""
@@ -93,9 +100,15 @@ def expert_gather(mgr: ExpertCacheManager, params, topk: np.ndarray) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--arch", default="granite_moe_3b_a800m",
+                    choices=("granite_moe_3b_a800m", "deepseek_v2_236b"))
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the full-width config cut to this many "
+                    "layers (0: the smoke config)")
     args = ap.parse_args(argv)
 
-    cfg = get_smoke_config("granite_moe_3b_a800m")
+    cfg = (dataclasses.replace(get_config(args.arch), n_layers=args.layers)
+           if args.layers else get_smoke_config(args.arch))
     model = build_model(cfg, device=args.device)
     params = model.init(0)
     rng = np.random.default_rng(0)

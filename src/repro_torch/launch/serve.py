@@ -1,7 +1,10 @@
 """Serving launcher: a local driver of the reduced configs on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --local
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --local
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --local --device cpu
+
+Every arch of ``repro_torch.configs`` serves at its smoke config.
 
 The port of ``repro.launch.serve``.  ``--dry`` (lower and compile the
 serve step on the production mesh) waits for the dry-run slice and raises.

@@ -1,4 +1,6 @@
-"""The model zoo's decoder family on the card (port of ``repro.models``)."""
+"""The model zoo on the card (port of ``repro.models``): the decoder family
+(dense GQA, MoE, VLM, MLA), the encoder-decoder, the SSM / Zamba2 hybrid
+and xLSTM, behind ``build_model``."""
 from .api import Model, build_model
 from .config import (
     EncDecConfig,
@@ -9,6 +11,8 @@ from .config import (
     VLMConfig,
     XLSTMConfig,
 )
+from .linear_attn import chunked_linear_attention, linear_attention_step
 
 __all__ = ["EncDecConfig", "MLAConfig", "Model", "ModelConfig", "MoEConfig",
-           "SSMConfig", "VLMConfig", "XLSTMConfig", "build_model"]
+           "SSMConfig", "VLMConfig", "XLSTMConfig", "build_model",
+           "chunked_linear_attention", "linear_attention_step"]

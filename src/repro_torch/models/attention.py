@@ -13,14 +13,15 @@ The port of ``repro.models.attention``'s GQA part.  Conventions:
 
 The arithmetic is the reference's explicit f32 softmax (no
 ``scaled_dot_product_attention``), so the port's numbers follow it.  MLA
-(``init_mla`` / ``mla_*``) and cross-attention (``init_cross`` /
-``cross_*``) wait for their slices (ROADMAP, queue 1, item 6).
+(DeepSeek-V2's latent attention: a decompressed prefill and the absorbed
+decode over the latent cache ``c`` / ``r``) and the Whisper decoder's
+cross-attention follow the GQA block.
 """
 from __future__ import annotations
 
 import torch
 
-from .common import apply_rope, dense_init, einsum, mm
+from .common import apply_rope, dense_init, einsum, mm, rmsnorm
 from .config import ModelConfig
 from .shard_ctx import constrain, constrain_cache
 
@@ -247,3 +248,139 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, cos, sin):
     y = mm(o.reshape(B, 1, -1), p["wo"])
     ct = cache["k"].dtype
     return y, {"k": encode_kv(k, ct), "v": encode_kv(v, ct)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 Multi-head Latent Attention)
+# ---------------------------------------------------------------------------
+def init_mla(gen: torch.Generator, cfg: ModelConfig, L: int, dtype) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wq_a": dense_init(gen, (L, d, m.q_lora_rank), dtype, fan_in=d),
+        "q_norm": torch.ones((L, m.q_lora_rank), dtype=dtype,
+                             device=gen.device),
+        "wq_b": dense_init(gen, (L, m.q_lora_rank, H * qk), dtype,
+                           fan_in=m.q_lora_rank),
+        "wkv_a": dense_init(gen, (L, d, m.kv_lora_rank + m.rope_head_dim),
+                            dtype, fan_in=d),
+        "kv_norm": torch.ones((L, m.kv_lora_rank), dtype=dtype,
+                              device=gen.device),
+        "wkv_b": dense_init(
+            gen, (L, m.kv_lora_rank, H * (m.nope_head_dim + m.v_head_dim)),
+            dtype, fan_in=m.kv_lora_rank),
+        "wo": dense_init(gen, (L, H * m.v_head_dim, d), dtype,
+                         fan_in=H * m.v_head_dim),
+    }
+
+
+def _mla_q(p, x, cfg, cos, sin):
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    cq = rmsnorm(p["q_norm"], mm(x, p["wq_a"]))
+    q = mm(cq, p["wq_b"]).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = apply_rope(q_rope, cos, sin)
+    return q_nope, q_rope
+
+
+def mla_forward(p, x, cfg: ModelConfig, cos, sin, *, causal: bool = True):
+    """Prefill / training MLA: decompress K/V, then standard attention."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)
+    ckv = mm(x, p["wkv_a"])
+    c_kv = rmsnorm(p["kv_norm"], ckv[..., : m.kv_lora_rank])
+    k_rope = apply_rope(ckv[..., None, m.kv_lora_rank:], cos, sin)  # 1 head
+    kv = mm(c_kv, p["wkv_b"]).reshape(B, S, H,
+                                      m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., : m.nope_head_dim], kv[..., m.nope_head_dim:]
+    q = constrain(torch.cat([q_nope, q_rope], dim=-1),
+                  ("dp", None, "model", None))
+    k = constrain(
+        torch.cat([k_nope, k_rope.expand(
+            k_nope.shape[:-1] + (m.rope_head_dim,))], dim=-1),
+        ("dp", None, "model", None))
+    v = constrain(v, ("dp", None, "model", None))
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    o = attention_core(q, k, v, cfg, causal=causal, scale=scale)
+    return mm(o.reshape(B, S, -1), p["wo"])
+
+
+def mla_decode(p, x, cache, pos, cfg: ModelConfig, cos, sin):
+    """Absorbed-form MLA decode over the COMPRESSED latent cache (``c``
+    (B, S, kv_lora_rank), ``r`` (B, S, rope_head_dim)), with W_UK / W_UV
+    folded into the score and output products.
+
+    Scores in f32, scaled by ``(nope + rope) ** -0.5``; the old cache
+    counts where ``slot < pos`` (strict), the current token is its own
+    term; the probabilities are cast to the cache dtype before the latent
+    products.  Returns (y, {c, r} NEW-TOKEN rows (B, 1, *)) for the
+    caller's single post-stack write."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)        # (B, 1, H, *)
+    ckv = mm(x, p["wkv_a"])                             # (B, 1, rank+rope)
+    c_kv = rmsnorm(p["kv_norm"], ckv[..., : m.kv_lora_rank])
+    k_rope = apply_rope(ckv[..., None, m.kv_lora_rank:], cos, sin)[:, :, 0]
+    w_uk = p["wkv_b"].reshape(m.kv_lora_rank, H,
+                              m.nope_head_dim + m.v_head_dim)
+    w_k = w_uk[..., : m.nope_head_dim]                  # (rank, H, nope)
+    w_v = w_uk[..., m.nope_head_dim:]                   # (rank, H, v)
+    # absorb: q_eff = q_nope @ W_UK^T -> scores in the latent space
+    q_eff = einsum("bhd,rhd->bhr", q_nope[:, 0], w_k)
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    s = (einsum("bhr,bsr->bhs", q_eff, cache["c"])
+         + einsum("bhd,bsd->bhs", q_rope[:, 0], cache["r"])).float() * scale
+    S = cache["c"].shape[1]
+    s = constrain_cache(s, b_axis=0, s_axis=2)
+    valid = (torch.arange(S, device=x.device)[None]
+             < torch.atleast_1d(pos)[:, None])          # (B|1, S)
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    s_cur = (einsum("bhr,br->bh", q_eff, c_kv[:, 0])
+             + einsum("bhd,bd->bh", q_rope[:, 0], k_rope[:, 0])
+             ).float() * scale
+    s_all = torch.cat([s, s_cur[..., None]], dim=-1)
+    pr = torch.softmax(s_all, dim=-1).to(cache["c"].dtype)
+    pr_s = constrain_cache(pr[..., :S], b_axis=0, s_axis=2)
+    o_lat = einsum("bhs,bsr->bhr", pr_s, cache["c"])
+    o_lat = o_lat + pr[..., S:] * c_kv                  # current-token term
+    o = einsum("bhr,rhd->bhd", o_lat, w_v)              # (B, H, v)
+    y = mm(o.reshape(B, 1, -1), p["wo"])
+    return y, {"c": c_kv, "r": k_rope}
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (Whisper decoder)
+# ---------------------------------------------------------------------------
+def init_cross(gen: torch.Generator, cfg: ModelConfig, L: int, dtype) -> dict:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, (L, d, H * hd), dtype, fan_in=d),
+        "wk": dense_init(gen, (L, d, H * hd), dtype, fan_in=d),
+        "wv": dense_init(gen, (L, d, H * hd), dtype, fan_in=d),
+        "wo": dense_init(gen, (L, H * hd, d), dtype, fan_in=H * hd),
+    }
+
+
+def cross_forward(p, x, enc_kv, cfg: ModelConfig):
+    """x (B, S, d) attends to precomputed encoder K/V (B, Se, H, hd)."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = constrain(mm(x, p["wq"]).reshape(B, S, H, hd),
+                  ("dp", None, "model", None))
+    o = attention_core(q, enc_kv["k"], enc_kv["v"], cfg, causal=False)
+    return mm(o.reshape(B, S, -1), p["wo"])
+
+
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    B, Se, _ = enc_out.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    return {
+        "k": mm(enc_out, p["wk"]).reshape(B, Se, H, hd),
+        "v": mm(enc_out, p["wv"]).reshape(B, Se, H, hd),
+    }

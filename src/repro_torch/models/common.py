@@ -10,11 +10,11 @@ same seed gives the same weights on one device, not the reference's.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 Params = Any  # nested dict of torch.Tensor
 
@@ -145,14 +145,37 @@ def apply_rope(x, cos, sin):
 # ---------------------------------------------------------------------------
 # activations
 # ---------------------------------------------------------------------------
+def sigmoid(x):
+    """``jax.nn.sigmoid`` as XLA lowers it: ``1 / (1 + exp(-x))``, each
+    op rounded to ``x``'s dtype (``torch.sigmoid`` rounds a bf16 result
+    once, and then a quarter of bf16 values differ by an ulp)."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x):
-    """``x * sigmoid(x)``, rounded after each step as ``jax.nn.silu``."""
-    return x * torch.sigmoid(x)
+    """``jax.nn.silu``: ``x * sigmoid(x)``, rounded after each step."""
+    return x * sigmoid(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def _const(v: float, like: torch.Tensor) -> float:
+    """A Python constant rounded to ``like``'s dtype, as a JAX weak-typed
+    constant is (torch keeps a scalar operand in f32)."""
+    return _rounded(v, like.dtype)
 
 
 def gelu(x):
-    """``jax.nn.gelu``'s default: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+    """``jax.nn.gelu``'s default, the tanh approximation, in its own op
+    order: ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))))``,
+    each op rounded to ``x``'s dtype and the constants too (``F.gelu``
+    rounds a bf16 result once)."""
+    inner = x + _const(0.044715, x) * (x * x * x)
+    t = torch.tanh(_const(float(np.sqrt(2.0 / np.pi)), x) * inner)
+    return x * (_const(0.5, x) * (1 + t))
 
 
 def act_fn(name: str):

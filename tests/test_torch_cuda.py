@@ -55,6 +55,7 @@ from repro_torch.kernels.packed_lookup import CliqueLookup, clique_lookup
 from repro_torch.learned import Scorer, TrainConfig, train_policy, warm_params
 from repro_torch.learned.train import adamw_config, train_steps
 from repro_torch.models import build_model
+from repro_torch.models.common import tree_leaves as model_leaves
 from repro_torch.models.common import tree_map
 from repro_torch.models.mlp import init_moe, moe_forward
 from repro_torch.optim.adamw import tree_leaves
@@ -1325,6 +1326,8 @@ def test_mesh_on_distinct_cards(cuda_device):
 #: the decoder-family smoke configs
 DECODERS = ["qwen2_5_3b", "codeqwen1_5_7b", "h2o_danube_1_8b",
             "command_r_35b", "granite_moe_3b_a800m", "phi_3_vision_4_2b"]
+#: the other families: MLA, the encoder-decoder, SSM hybrid, xLSTM
+FAMILIES = ["deepseek_v2_236b", "whisper_tiny", "zamba2_1_2b", "xlstm_125m"]
 #: the card's logits against the CPU's, as a share of the CPU's largest:
 #: f32 products summed in other orders (TF32 off); bf16 keeps 8 bits
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
@@ -1406,8 +1409,10 @@ def test_expert_gather_through_packed_lookup(cuda_device):
                 assert torch.equal(out["rows"][r, slot], rows[members[0]])
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_3b", "granite_moe_3b_a800m"])
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "granite_moe_3b_a800m"]
+                         + FAMILIES)
 def test_server_staggered_equals_solo_on_card(cuda_device, arch):
+    """A staggered request's tokens on the card equal its solo run."""
     model = build_model(get_smoke_config(arch), device=cuda_device)
     params = model.init(0)
 
@@ -1425,3 +1430,62 @@ def test_server_staggered_equals_solo_on_card(cuda_device, arch):
     srv.submit(Request(rid=1, prompt=list(p1), max_new=6))
     done = {r.rid: r.out for r in srv.run(max_steps=200)}
     assert done == {0: solo(p0), 1: solo(p1)}
+
+
+# ---------------------------------------------------------------------------
+# the remaining model families: MLA, the encoder-decoder, SSM hybrid, xLSTM
+# ---------------------------------------------------------------------------
+def _gap(got, want) -> float:
+    got, want = got.cpu().float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_and_decode_on_card_equals_cpu(cuda_device, arch,
+                                                      dtype):
+    """A smoke model's ``prefill`` (a sequence of two chunks; whisper's
+    seeded frames) and 4 ``decode_step``s at staggered positions from a
+    seeded cache (whisper: its prefill's cross K/V) on the card against
+    the port's CPU run on the same weights: logits and every cache leaf."""
+    cfg = get_smoke_config(arch)
+    cfg = _f32(cfg) if dtype == "float32" else cfg
+    gm, cm = build_model(cfg, device=cuda_device), build_model(cfg,
+                                                              device="cpu")
+    cp = cm.init(0)
+    gp = tree_map(lambda a: a.to(cuda_device), cp)
+    tol = MODEL_TOL[dtype]
+    gen = torch.Generator().manual_seed(5)
+    S = 2 * (cfg.ssm.chunk if cfg.ssm else cfg.xlstm.chunk if cfg.xlstm
+             else 8)
+    toks = torch.randint(0, cfg.vocab, (2, S), generator=gen)
+    batch = {"tokens": toks, "labels": toks}
+    kw = {}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, S, cfg.d_model), generator=gen)
+        kw["cache_len"] = 40
+    gl, gc = gm.prefill(gp, {k: v.to(cuda_device) for k, v in batch.items()},
+                        **kw)
+    cl, cc = cm.prefill(cp, batch, **kw)
+    assert _gap(gl, cl) <= tol
+    for g, c in zip(model_leaves(gc), model_leaves(cc)):
+        assert g.dtype == c.dtype and g.shape == c.shape
+        if c.any():
+            assert _gap(g, c) <= tol
+    cdt = getattr(torch, dtype)
+    cc = tree_map(lambda a: (torch.randn(a.shape, generator=gen) * 0.5).to(
+        a.dtype), cm.init_cache(2, 40, cdt))
+    if cfg.family == "encdec":
+        cc["cross"] = tree_map(lambda a: a.cpu(), gc["cross"])
+    gc = tree_map(lambda a: a.to(cuda_device), cc)
+    pos = torch.tensor([0, 33], dtype=torch.int32)
+    for _ in range(4):
+        tok = torch.randint(0, cfg.vocab, (2, 1), generator=gen)
+        gl, gc = gm.decode_step(gp, gc, tok.to(cuda_device),
+                                pos.to(cuda_device))
+        cl, cc = cm.decode_step(cp, cc, tok, pos)
+        assert _gap(gl, cl) <= tol
+        for g, c in zip(model_leaves(gc), model_leaves(cc)):
+            assert g.dtype == c.dtype
+            assert _gap(g, c) <= tol
+        pos = pos + 1

@@ -39,7 +39,17 @@ F32_TOL = 2e-5
 BF16_TOL = 6e-2
 DECODERS = ["qwen2_5_3b", "codeqwen1_5_7b", "h2o_danube_1_8b",
             "command_r_35b", "granite_moe_3b_a800m", "phi_3_vision_4_2b"]
-WAITING = ["deepseek_v2_236b", "whisper_tiny", "zamba2_1_2b", "xlstm_125m"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch's CPU ops on one thread: at the smoke sizes every op is tiny,
+    and under the parallel test run an op's thread team waits on cores the
+    other workers hold (a test here ran ~50x slower on 8 loaded cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_tree(tree):
@@ -115,12 +125,6 @@ def test_configs_field_for_field(arch):
                 ref_configs.shape_applicable(want, shape)
     if want.moe is not None:
         assert got.moe.n_experts_padded == want.moe.n_experts_padded
-
-
-@pytest.mark.parametrize("arch", WAITING)
-def test_build_model_raises_for_waiting_families(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(configs.get_smoke_config(arch), device="cpu")
 
 
 def test_shard_ctx_identity_without_mesh_and_raises_with_one():

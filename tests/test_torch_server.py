@@ -1,21 +1,26 @@
 """The port's ``BatchedServer`` against ``repro.serving.BatchedServer``, on the CPU.
 
-* token streams: the f32 smoke variants of qwen2.5 and granite-moe serve
-  the same requests to the same tokens in both packages (the same
-  ``batch_size``, ``cache_len`` and ``max_new``; the reference's jitted
-  step against the port's eager one, both over a bf16 cache);
+* token streams: the f32 smoke variants of qwen2.5, granite-moe,
+  deepseek-v2 (MLA), whisper (encoder-decoder), zamba2 (SSM hybrid) and
+  xlstm serve the same requests to the same tokens in both packages (the
+  same ``batch_size``, ``cache_len`` and ``max_new``; the reference's
+  jitted step against the port's eager one, both over a bf16 cache, or an
+  f32 one for deepseek-v2: MLA writes its latent rows uncast, so an f32
+  model refuses a bf16 cache in both packages);
 * staggered arrivals decode as their solo runs, and a reused slot
-  restarts at position 0 (the port's counterparts of
-  ``tests/test_server_staggered.py``'s decoder cases), for the six
-  decoder-family smoke configs;
+  restarts at position 0 with a zeroed recurrent state (the port's
+  counterparts of ``tests/test_server_staggered.py``), for every smoke
+  config;
 * the routing tap feeding the port's ``ExpertCacheManager(device="cpu")``
   gives the reference manager's cliques and totals (1e-9) when the
-  reference is fed the same top-k;
+  reference is fed the same top-k, for granite-moe and deepseek-v2 (its
+  first MoE layer after the dense prefix);
 * ``launch.serve --local`` and the example module run on the CPU.
 """
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -36,8 +41,21 @@ from repro_torch.serving import BatchedServer, Request
 
 DECODERS = ["qwen2_5_3b", "codeqwen1_5_7b", "h2o_danube_1_8b",
             "command_r_35b", "granite_moe_3b_a800m", "phi_3_vision_4_2b"]
+#: the families of the second model slice
+FAMILIES = ["deepseek_v2_236b", "whisper_tiny", "zamba2_1_2b", "xlstm_125m"]
 #: relative tolerance of the expert cache's float costs (the reference's bar)
 RTOL = 1e-9
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch's CPU ops on one thread: at the smoke sizes every op is tiny,
+    and under the parallel test run an op's thread team waits on cores the
+    other workers hold (a test here ran ~50x slower on 8 loaded cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_tree(tree):
@@ -58,7 +76,8 @@ def prompts(seed: int, n: int, vocab: int):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_3b", "granite_moe_3b_a800m"])
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "granite_moe_3b_a800m"]
+                         + FAMILIES)
 def test_token_streams_equal_the_reference(arch):
     rcfg, tcfg = f32(ref_smoke(arch)), f32(get_smoke_config(arch))
     rm = ref_build(rcfg)
@@ -68,6 +87,15 @@ def test_token_streams_equal_the_reference(arch):
     ps = prompts(1, 7, rcfg.vocab)
     rs = RefServer(rm, rp, batch_size=3, cache_len=32)
     ts = BatchedServer(tm, tp, batch_size=3, cache_len=32)
+    if tcfg.mla is not None:
+        # the latent rows are written in the compute dtype, uncast: an f32
+        # model refuses the server's bf16 cache in both packages
+        ts.submit(Request(rid=0, prompt=[1, 2], max_new=1))
+        with pytest.raises(TypeError, match="cache rows"):
+            ts.run(max_steps=2)
+        rs.cache = rm.init_cache(3, 32, jnp.float32)
+        ts = BatchedServer(tm, tp, batch_size=3, cache_len=32)
+        ts.cache = tm.init_cache(3, 32, torch.float32)
     for rid, pr in enumerate(ps):
         rs.submit(RefRequest(rid=rid, prompt=list(pr), max_new=6))
         ts.submit(Request(rid=rid, prompt=list(pr), max_new=6))
@@ -92,7 +120,7 @@ def _run_solo(model, params, prompt, max_new=6):
     return done[0].out
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", DECODERS + FAMILIES)
 def test_staggered_arrival_matches_solo_decode(arch):
     model, params = _model(arch)
     p0 = [1, 2, 3, 4, 5, 6, 7, 8]
@@ -111,8 +139,12 @@ def test_staggered_arrival_matches_solo_decode(arch):
     assert done[1].out == solo1, "staggered request decoded at wrong position"
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_3b", "granite_moe_3b_a800m"])
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "granite_moe_3b_a800m",
+                                  "zamba2_1_2b", "xlstm_125m"])
 def test_slot_reuse_restarts_position(arch):
+    """A reused slot decodes its next request from position 0; a recurrent
+    arch's state is zeroed on admission, so the request gives its solo
+    tokens (the previous tenant's state would leak otherwise)."""
     model, params = _model(arch)
     short, late = [4, 5], [11, 12, 13]
     solo = _run_solo(model, params, late, max_new=4)
@@ -135,8 +167,9 @@ def test_eos_stops_a_request():
     assert done.out == first[:first.index(eos) + 1]
 
 
-def test_routing_tap_feeds_the_same_expert_cache():
-    cfg = get_smoke_config("granite_moe_3b_a800m")
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "deepseek_v2_236b"])
+def test_routing_tap_feeds_the_same_expert_cache(arch):
+    cfg = get_smoke_config(arch)
     model = build_model(cfg, device="cpu")
     params = model.init(0)
     reqs = example.make_requests(np.random.default_rng(0), 24, cfg.vocab, 2,
@@ -177,17 +210,20 @@ def test_routing_tap_feeds_the_same_expert_cache():
     assert g["rows"].dtype == torch.bfloat16
 
 
-def test_launch_serve_local_on_cpu(capsys):
-    done = launch_serve.main(["--arch", "granite-moe-3b-a800m", "--local",
-                              "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v2-236b",
+                                  "whisper-tiny", "zamba2-1.2b",
+                                  "xlstm-125m"])
+def test_launch_serve_local_on_cpu(arch, capsys):
+    done = launch_serve.main(["--arch", arch, "--local", "--device", "cpu"])
     assert len(done) == 8 and all(len(r.out) == 8 for r in done)
     assert "served 8 requests" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         launch_serve.main(["--dry"])
 
 
-def test_example_on_cpu(capsys):
-    out = example.main(["--device", "cpu"])
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "deepseek_v2_236b"])
+def test_example_on_cpu(arch, capsys):
+    out = example.main(["--device", "cpu", "--arch", arch])
     assert out["server"].steps > 0 and out["stats"].n_observations > 0
     text = capsys.readouterr().out
     assert "served 24 requests" in text and "packed table" in text
