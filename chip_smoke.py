@@ -68,7 +68,7 @@
    window an ``akpc`` group, no scan or lookup); the first and last lane
    of each group against serial card runs, the netflix ``akpc`` group on
    a 20,000-request head against serial CPU runs and a 3-lane
-   ``catalog-10k`` theta group (top_frac 0.1: h 1024) on a 100,000-request
+   ``catalog-10k`` theta group (top_frac 0.1: h 1024) on a 25,000-request
    head against serial card runs (state, costs at 1e-9, windows and size
    history); then the laned kernels against their laned plain versions,
    bitwise and twice, on the inputs captured from these runs and on
@@ -202,6 +202,29 @@
     positions on the card within ``CROSS_TOL`` of the port's CPU run on
     the same weights (logits and every cache or state leaf); staggered ==
     solo on the card for zamba2, xlstm and whisper;
+13h. ``train``: the training path.  qwen2.5-3b at its full config (36
+    layers, d 2048, vocab 151,936, bf16, seeded weights) trains on
+    4,096-position batches of 2 microbatches of 1 row, every layer
+    rematerialised: 3 AdamW steps and one more under ``torch.profiler``
+    (kernels a step, device-busy time, idle share), then 2 steps of 8-bit
+    AdamW with error-feedback compression; step seconds, tokens/s, peak
+    memory, the model-FLOP share of the bf16 peak, finite losses and grad
+    norms.  Then, for qwen2.5-3b at full width cut to 2 layers (2,048
+    positions: the chunked attention and its backward), granite-moe at
+    full width cut to 2 layers and the f32 smoke configs of deepseek-v2,
+    zamba2, xlstm, whisper and phi-3-vision: the train step's mean loss
+    and gradient over both microbatches on the card against the CPU
+    (``TRAIN_F32_TOL`` / CROSS_TOL of each leaf's largest; granite's in
+    f32, its bf16 gap printed beside the CPU's own bf16-against-f32 gap),
+    each train step twice on the card from one state (equal bits), each
+    whole step's loss and grad norm against the CPU's whole step, and each
+    optimizer update of the mean gradient on the card against the CPU
+    (parameters and state at the same tolerances, 8-bit codes at most one
+    unit apart).  Last, ``python -m
+    repro_torch.examples.train_lm`` at its defaults on the card, without
+    and with a failure at step 60: equal final parameters bit for bit,
+    one restart, the loss falling, the shard cache's ``crm_update``,
+    ``clique_pair_edges`` and ``merge_density`` once a window;
 14. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
@@ -216,6 +239,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -243,6 +267,7 @@ from repro_torch.bench import (  # noqa: E402
     table1,
 )
 from repro_torch.bench.common import (  # noqa: E402
+    PEAK_BF16,
     PEAK_BYTES,
     PEAK_FP32,
     PEAK_TF32,
@@ -317,11 +342,19 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.data import PackedDataPipeline, ShardStore  # noqa: E402
 from repro_torch.learned import hindsight_windows, train_policy  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
     serve_moe_expert_cache as moe_example,
+    train_lm,
 )
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.launch.train import (  # noqa: E402
+    accumulate_gradients,
+    apply_gradients,
+    make_train_step,
+)
+from repro_torch.models import build_model, value_and_grad  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, ef_init  # noqa: E402
+from repro_torch.optim.adamw8bit import adamw8bit_init  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.models.common import tree_leaves as param_leaves  # noqa: E402,E501
 from repro_torch.serving import (  # noqa: E402
@@ -399,10 +432,13 @@ SYNC_KINDS = {"gather": "lookup", "crm_matmul": "host_cgm",
 
 #: the fig7 phase: the CPU head of the 17-lane netflix akpc group, and a
 #: 3-lane theta group on catalog-10k (top_frac 0.1: the hot space h 1024)
-#: over a head of its trace, each lane against a serial card run
+#: over a head of its trace, each lane against a serial card run.  The
+#: catalog group's time follows its windows (a head of 100,000 requests,
+#: 20 windows, was half of the phase): cut twice, to 25,000, to keep the
+#: script well inside its limit beside the train phase
 FIG7_CPU_HEAD = 20_000
 FIG7_CATALOG_THETAS, FIG7_CATALOG_TOP_FRAC = (0.15, 0.2, 0.3), 0.1
-FIG7_CATALOG_HEAD = 100_000
+FIG7_CATALOG_HEAD = 25_000
 
 
 #: the learned phase: fig11's regime-shift stress trace, trained on the
@@ -3315,6 +3351,455 @@ def serve_families_phase(seed: int, dev) -> tuple[dict, dict]:
     return line, recs
 
 
+# ---------------------------------------------------------------------------
+# train: gradients, the train step, the optimisers, checkpoints and the
+# fault-tolerant loop
+# ---------------------------------------------------------------------------
+#: (a) full-width, full-depth qwen2.5-3b at the train_4k sequence: batches
+#: of TRAIN_ACCUM microbatches of TRAIN_MB rows, every layer rematerialised;
+#: TRAIN_STEPS AdamW steps (f32 moments) and one more under the profiler,
+#: then TRAIN_STEPS_8BIT steps of 8-bit AdamW with error-feedback
+#: compression; the first step of each run is left out of the median
+TRAIN_ARCH = "qwen2_5_3b"
+TRAIN_SEQ, TRAIN_ACCUM, TRAIN_MB = 4096, 2, 1
+TRAIN_STEPS, TRAIN_STEPS_8BIT = 3, 2
+#: (b) one train step on the card against the CPU from the same
+#: parameters, two microbatches: arch -> (layers, sequence, microbatch
+#: rows, modes); layers None: the smoke config in f32 (sequence None: two
+#: of its recurrent chunks, else TRAIN_CROSS_SMOKE_SEQ positions).  qwen's
+#: 2,048 positions pass its attn_chunk (1,024): the chunked attention and
+#: its backward run; granite-moe runs the MoE dispatch backward and the
+#: aux loss
+TRAIN_CROSS = {
+    "qwen2_5_3b": (2, 2048, 1, ("adamw", "compress_8bit")),
+    "granite_moe_3b_a800m": (2, 256, 1, ("adamw",)),
+    "deepseek_v2_236b": (None, None, 2, ("adamw",)),
+    "zamba2_1_2b": (None, None, 2, ("adamw",)),
+    "xlstm_125m": (None, None, 2, ("adamw",)),
+    "whisper_tiny": (None, None, 2, ("adamw",)),
+    "phi_3_vision_4_2b": (None, None, 2, ("adamw",)),
+}
+TRAIN_CROSS_SMOKE_SEQ = 24
+#: ``tests/test_torch_models.py``'s tolerances, of each leaf's largest
+#: magnitude: f32 sums in other orders (2e-5), bf16's 8 bits (CROSS_TOL)
+TRAIN_F32_TOL = 2e-5
+#: archs whose bf16 gradients are chaotic at these shapes: granite-moe's
+#: router picks its top 8 of 40 experts from bf16 activations, and a
+#: rounding that reorders two experts moves whole tokens between experts,
+#: so the CPU's own bf16 gradients stand further from its f32 ones than
+#: CROSS_TOL (PERF.md, §7).  Their gradients, whole-step stats and
+#: updates are held in f32 on the same weights (the same code at the same
+#: shapes), and the bf16 gaps printed beside the CPU's own
+#: bf16-against-f32 gap
+F32_TRAIN = ("granite_moe_3b_a800m",)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=1000)
+#: (c) the example at its defaults, once uninterrupted and once with a
+#: failure injected at this step
+TRAIN_LM_FAILURE = 60
+
+
+def opt_state(params, mode: str) -> dict:
+    """The optimizer state of ``mode`` ("adamw" or "compress_8bit")."""
+    if mode == "adamw":
+        return adamw_init(params)
+    return {**adamw8bit_init(params), "ef": ef_init(params)}
+
+
+def train_step_for(model, mode: str, opt_cfg: AdamWConfig):
+    return make_train_step(model, opt_cfg, compress=mode != "adamw",
+                           opt_8bit=mode != "adamw")
+
+
+def lm_batch(rng, cfg, accum: int, mb: int, seq: int) -> dict:
+    """(accum, mb, seq) next-token batches from a seeded numpy generator,
+    with a VLM's patches or an encoder-decoder's frames."""
+    toks = rng.integers(0, cfg.vocab, (accum, mb, seq + 1)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg.vlm is not None:
+        batch["patches"] = rng.standard_normal(
+            (accum, mb, cfg.vlm.n_patches, cfg.vlm.d_patch)).astype(
+                np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (accum, mb, seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+#: kinds of device kernels in a profile, by a part of their names (the
+#: first that matches): cuBLAS's GEMMs, copies and casts, reductions
+#: (sums, softmax, norms), the rest of PyTorch's elementwise kernels
+KERNEL_KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
+                ("copy_cast", ("copy_kernel", "Memcpy", "Memset")),
+                ("reduce", ("reduce_kernel", "softmax", "Softmax", "norm")),
+                ("elementwise", ("elementwise_kernel",)))
+
+
+def profiled(fn) -> tuple[float, dict]:
+    """``fn()`` once under ``torch.profiler`` (device activity only): the
+    wall, kernels launched, device-busy ms (the union of the device
+    events), the idle share, device ms by kind of kernel and the ten
+    costliest kernels (by the first 80 characters of the name).  The
+    profiler's raw events are read: building its per-op event tree for a
+    step of ~10^5 kernels takes a minute."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = sorted((e.start_ns(), e.end_ns(), e.name())
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA)
+    if not ev:
+        return wall, {"device_busy_ms": "not measured (no device events)"}
+    busy, end = 0, -1
+    by_name: dict = {}
+    by_kind: dict = {}
+    for s, e, name in ev:
+        busy += max(0, e - max(s, end))
+        end = max(end, e)
+        by_name[name[:80]] = by_name.get(name[:80], 0) + (e - s)
+        kind = next((k for k, keys in KERNEL_KINDS if any(
+            key in name for key in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0) + (e - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    launches = sum(1 for *_, n in ev if not n.startswith(("Memcpy", "Memset")))
+    return wall, {"device_events": len(ev), "kernel_launches": launches,
+                  "device_busy_ms": busy / 1e6,
+                  "idle_share": 1.0 - busy / 1e9 / wall,
+                  "by_kind_ms": {k: t / 1e6 for k, t in by_kind.items()},
+                  "top_kernels_ms": {n: t / 1e6 for n, t in top}}
+
+
+def train_full_run(model, seed: int, mode: str, steps: int,
+                   profile_last: bool = False) -> dict:
+    """``steps`` train steps of ``mode`` from seeded parameters: step
+    seconds (host clock over a synchronised step), losses and grad norms
+    (finite), the peak device memory; with ``profile_last`` one more step
+    under the profiler."""
+    cfg = model.cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed)
+    opt = opt_state(params, mode)
+    step = train_step_for(model, mode, AdamWConfig())
+    rng = np.random.default_rng(seed)
+    secs, losses, gnorms = [], [], []
+
+    def one():
+        nonlocal params, opt
+        batch = lm_batch(rng, cfg, TRAIN_ACCUM, TRAIN_MB, TRAIN_SEQ)
+        params, opt, stats = step(params, opt, batch)
+        losses.append(float(stats["loss"]))
+        gnorms.append(float(stats["grad_norm"]))
+
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    prof = None
+    if profile_last:
+        t0 = time.perf_counter()
+        wall, prof = profiled(one)
+        prof["wall_s"] = wall
+        prof["with_trace_processing_s"] = time.perf_counter() - t0
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"train_full {mode}: non-finite losses "
+                             f"{losses} or grad norms {gnorms}")
+    n = sum(a.numel() for a in param_leaves(params))
+    tokens = TRAIN_ACCUM * TRAIN_MB * TRAIN_SEQ
+    step_s = float(np.median(secs[1:]))
+    out = {
+        "mode": mode, "steps": steps, "tokens_a_step": tokens,
+        "step_s": step_s, "step_s_all": secs,
+        "tokens_per_s": tokens / step_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "losses": losses, "grad_norms": gnorms,
+        "model_flops_a_step": 6.0 * n * tokens,
+        "model_flop_share": 6.0 * n * tokens / (step_s * PEAK_BF16),
+        "state_bytes": tree_bytes(opt),
+    }
+    if prof is not None:
+        out["profiled_step"] = prof
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full(seed: int, dev) -> dict:
+    """(a): full qwen2.5-3b, AdamW then 8-bit AdamW with compression."""
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    line = {"config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+            "attn": [cfg.attn_impl, cfg.attn_chunk],
+            "params": cfg.param_count(), "seq": TRAIN_SEQ,
+            "accum": TRAIN_ACCUM, "microbatch": TRAIN_MB, "remat": "every layer",
+            "peak_bf16_flops": PEAK_BF16,
+            "peak_used": "989 TFLOP/s dense bf16, H100 SXM data sheet"}
+    line["adamw"] = train_full_run(model, seed, "adamw", TRAIN_STEPS,
+                                   profile_last=True)
+    line["compress_8bit"] = train_full_run(model, seed, "compress_8bit",
+                                           TRAIN_STEPS_8BIT)
+    return line
+
+
+def tree_gap(got, want, floats_only: bool = False) -> float:
+    """The largest leaf gap of two trees of one structure, each as a share
+    of the ``want`` leaf's largest magnitude (``floats_only``: integer
+    leaves, the 8-bit codes, left out)."""
+    worst = 0.0
+    for g, w in zip(param_leaves(got), param_leaves(want)):
+        if floats_only and not w.is_floating_point():
+            continue
+        w = w.float()
+        worst = max(worst, float((g.cpu().float() - w).abs().max()
+                                 / w.abs().max().clamp_min(1e-30)))
+    return worst
+
+
+def same_tree_bits(a, b, tag: str) -> None:
+    for x, y in zip(param_leaves(a), param_leaves(b)):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{tag}: the card's step gave other bits "
+                                 "the second time")
+
+
+def clone_tree(tree):
+    return tree_map(lambda a: a.clone(), tree)
+
+
+def code_flips(got, want) -> dict:
+    """8-bit moment codes of the card against the CPU's: share that differ
+    and the largest difference."""
+    n = diff = worst = 0
+    for g, w in zip(param_leaves(got["mv"]), param_leaves(want["mv"])):
+        if w.dtype != torch.int8:
+            continue
+        d = (g.cpu().int() - w.int()).abs()
+        n += d.numel()
+        diff += int((d > 0).sum())
+        worst = max(worst, int(d.max()))
+    return {"share": diff / max(n, 1), "max": worst}
+
+
+def f32_variant(cfg):
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def rel_gap(got, want) -> float:
+    return abs(float(got) - float(want)) / abs(float(want))
+
+
+def cpu_mean_gradients(cfg, params, batch: dict):
+    """The train step's mean loss and gradient on the CPU, written out
+    plainly: each microbatch's ``value_and_grad`` without remat (the same
+    bits as with it, less time), summed in f32 and divided by their
+    count."""
+    model = build_model(cfg, device="cpu")
+    accum = batch["tokens"].shape[0]
+    lsum, g = torch.zeros(()), None
+    for i in range(accum):
+        loss, grads = value_and_grad(
+            model, params, {k: torch.from_numpy(v[i]) for k, v in
+                            batch.items()}, remat=False)
+        grads = tree_map(lambda a: a.float(), grads)
+        g = grads if g is None else tree_map(torch.add, g, grads)
+        lsum = lsum + loss
+        del grads
+    n = torch.full((), float(accum))
+    return lsum / n, tree_map(lambda a: a / n, g)
+
+
+def grads_gap(cfg, params, batch: dict, dev, cpu_run=None):
+    """The train step's mean loss and gradient over both microbatches
+    (``accumulate_gradients``) on the card against the CPU's from the same
+    parameters: the gaps, the card's ``(loss, g)`` and the CPU's."""
+    card = accumulate_gradients(build_model(cfg, device=dev), params, batch)
+    if cpu_run is None:
+        cpu_run = cpu_mean_gradients(
+            cfg, tree_map(lambda a: a.cpu(), params), batch)
+    return ({"loss": rel_gap(card[0], cpu_run[0]),
+             "grads": tree_gap(card[1], cpu_run[1])}, card, cpu_run)
+
+
+def train_cross_case(arch: str, seed: int, dev) -> dict:
+    """(b): from one set of seeded parameters and one batch of two
+    microbatches, (1) the train step's mean loss and gradient on the card
+    (``accumulate_gradients``: both microbatches, their sum and the divide)
+    against the CPU, (2) each mode's train step on the card twice, from
+    clones of one state: equal bits, (3) each mode's whole step's
+    ``stats`` loss and grad norm against the CPU's whole step, (4) the
+    update half of that CPU step (``apply_gradients`` of the CPU's mean
+    gradient) run on the card against the CPU: the stepped parameters and
+    optimizer state.  The whole step's parameters are printed but not
+    held: AdamW divides each gradient by its own magnitude, so a
+    near-zero gradient whose sign the summation order decides moves its
+    parameter by a whole step (phi-3-vision in f32: 3.38e-5 of a leaf's
+    largest against the 2e-5 tolerance).  For F32_TRAIN archs (1), (3)
+    and (4) are held in f32 on the same weights and (2) runs in bf16."""
+    layers, seq, mb, modes = TRAIN_CROSS[arch]
+    if layers is None:
+        cfg = f32_variant(get_smoke_config(arch))
+        rec = cfg.ssm or cfg.xlstm
+        seq = 2 * rec.chunk if rec else TRAIN_CROSS_SMOKE_SEQ
+    else:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    f32 = cfg.param_dtype == "float32"
+    tol = TRAIN_F32_TOL if f32 else CROSS_TOL
+    gm = build_model(cfg, device=dev)
+    gp = gm.init(seed)
+    cp = tree_map(lambda a: a.cpu(), gp)
+    batch = lm_batch(np.random.default_rng(seed), cfg, 2, mb, seq)
+    out = {"layers": (f"{cfg.n_layers} of {get_config(arch).n_layers} (cut)"
+                      if layers else f"smoke config, {cfg.n_layers}"),
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "dtype": cfg.param_dtype, "seq": seq, "accum": 2,
+           "microbatch": mb,
+           "params": sum(a.numel() for a in param_leaves(gp)),
+           "attn": [cfg.attn_impl, cfg.attn_chunk], "modes": {}}
+    hcfg, hp, hcp = cfg, gp, cp          # the config the checks hold
+    gaps, card, cpu_run = grads_gap(cfg, gp, batch, dev)
+    if not f32 and (arch in F32_TRAIN or max(gaps.values()) > tol):
+        f32_cp = tree_map(lambda a: a.float(), cp)
+        noise = cpu_mean_gradients(f32_variant(cfg), f32_cp, batch)
+        out["cpu_bf16_against_f32"] = {
+            "loss": rel_gap(cpu_run[0], noise[0]),
+            "grads": tree_gap(cpu_run[1], noise[1])}
+        if arch in F32_TRAIN:
+            # held in f32 on the same (bf16-valued) weights; bf16 printed
+            hcfg, hcp = f32_variant(cfg), f32_cp
+            hp = tree_map(lambda a: a.float(), gp)
+            out["bf16_gaps"] = gaps
+            del card, cpu_run
+            gaps, card, cpu_run = grads_gap(hcfg, hp, batch, dev,
+                                            cpu_run=noise)
+            out["held_in"] = "float32"
+        del noise, f32_cp
+    out["max_gap"] = gaps
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    cg = cpu_run[1]
+    del card
+    for mode in modes:
+        flags = (mode != "adamw", mode != "adamw")
+        step = train_step_for(gm, mode, opt_cfg)
+        runs = [step(clone_tree(gp), opt_state(gp, mode), batch)
+                for _ in range(2)]
+        for i in range(3):
+            same_tree_bits(runs[0][i], runs[1][i], f"train_cross {arch} {mode}")
+        gs = runs[0][2]
+        rec = {"loss": float(gs["loss"]), "grad_norm": float(gs["grad_norm"]),
+               "card_twice": "equal bits"}
+        whole = runs[0][0]
+        del runs
+        if hcfg is not cfg:
+            step = train_step_for(build_model(hcfg, device=dev), mode, opt_cfg)
+            whole, _, gs = step(clone_tree(hp), opt_state(hp, mode), batch)
+        # the CPU's whole step (its own mean gradient), and the same
+        # update of that gradient on the card
+        cu = apply_gradients(opt_cfg, clone_tree(cg), clone_tree(hcp),
+                             opt_state(hcp, mode), *flags)
+        gu = apply_gradients(opt_cfg, tree_map(lambda a: a.to(dev), cg),
+                             clone_tree(hp), opt_state(hp, mode), *flags)
+        rec["whole_step"] = {
+            "loss": rel_gap(gs["loss"], cpu_run[0]),
+            "grad_norm": rel_gap(gs["grad_norm"], cu[2]["grad_norm"]),
+            "params_not_held": tree_gap(whole, cu[0])}
+        del whole
+        rec["update_on_one_gradient"] = {
+            "params": tree_gap(gu[0], cu[0]),
+            "state": tree_gap(gu[1], cu[1], floats_only=True),
+            "grad_norm": rel_gap(gu[2]["grad_norm"], cu[2]["grad_norm"])}
+        if mode != "adamw":
+            rec["update_on_one_gradient"]["codes"] = code_flips(gu[1], cu[1])
+        out["modes"][mode] = rec
+        del gu, cu
+    held = [gaps["loss"], gaps["grads"]] + [
+        r[part][k] for r in out["modes"].values()
+        for part, keys in (("whole_step", ("loss", "grad_norm")),
+                           ("update_on_one_gradient",
+                            ("params", "state", "grad_norm")))
+        for k in keys]
+    codes = [r["update_on_one_gradient"].get("codes", {"max": 0})["max"]
+             for r in out["modes"].values()]
+    if max(held) > tol or max(codes) > 1:
+        raise AssertionError(f"train_cross {arch}: the card differs from the "
+                             f"CPU: {out} (tolerance {tol}, codes 1)")
+    del gm, gp, cp, hp, hcp, cg, cpu_run
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_lm_runs(out_dir) -> dict:
+    """(c): ``python -m repro_torch.examples.train_lm`` at its defaults on
+    the card, uninterrupted and with a failure at TRAIN_LM_FAILURE: equal
+    final parameters bit for bit, one restart, the loss falling, and the
+    shard cache's device clique generation launching each of its three
+    kernels once a window of every cache session."""
+    runs = {}
+    for tag, extra in (("clean", []), ("failure", [
+            "--inject-failure", str(TRAIN_LM_FAILURE)])):
+        ckpt = out_dir / f"train_lm_{tag}"
+        if ckpt.exists():
+            shutil.rmtree(ckpt)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = train_lm.main(["--ckpt-dir", str(ckpt)] + extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        shutil.rmtree(ckpt)
+        launches = launch_counts()
+        pipe, ctl, losses = res["pipeline"], res["controller"], res["losses"]
+        windows = pipe.windows
+        for k in CGM_KERNELS:
+            if launches[k] != windows or windows < 1:
+                raise AssertionError(f"train_lm {tag}: {launches[k]} {k} "
+                                     f"launches for {windows} windows")
+        k = max(1, len(losses) // 10)
+        runs[tag] = {"s": secs, "restarts": ctl.restarts,
+                     "steps_run": len(losses), "windows": windows,
+                     "loss_first_tenth": sum(losses[:k]) / k,
+                     "loss_last_tenth": sum(losses[-k:]) / k,
+                     "launches": launches,
+                     "akpc_total": pipe.telemetry.akpc_total,
+                     "params": res["params"]}
+    same_tree_bits(runs["clean"].pop("params"), runs["failure"].pop("params"),
+                   "train_lm: the run with a failure")
+    if runs["failure"]["restarts"] != 1 or runs["clean"]["restarts"] != 0:
+        raise AssertionError(f"train_lm: restarts {runs}")
+    runs["final_params"] = "bitwise equal"
+    return runs
+
+
+def train_phase(seed: int, dev, out_dir) -> tuple[dict, dict]:
+    """The training path on the card: (a) full qwen2.5-3b training steps,
+    (b) card against CPU for one train step of every family, (c) the
+    example with an injected failure.  Returns the ``train`` line and the
+    launches of (c)'s failure run."""
+    line: dict = {"live_bytes_before": torch.cuda.memory_allocated()}
+    times: dict = {}
+    t0 = time.perf_counter()
+    line["train_full"] = train_full(seed, dev)
+    times["train_full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["train_cross"] = {a: train_cross_case(a, seed, dev)
+                           for a in TRAIN_CROSS}
+    line["train_cross_tolerance"] = {"bfloat16": CROSS_TOL,
+                                     "float32": TRAIN_F32_TOL}
+    times["train_cross"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["train_lm"] = train_lm_runs(out_dir)
+    times["train_lm"] = time.perf_counter() - t0
+    line["part_s"] = times
+    print("train " + json.dumps(line), flush=True)
+    return line, line["train_lm"]["failure"]["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3440,6 +3925,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     records2 = kernel_phase2(captured, args.seed, dev)
+    del captured
     phase("kernels_host_path", t0)
 
     serve = {}
@@ -3476,6 +3962,7 @@ def main() -> int:
     report_rows: list = []
     rows_rec = rows_step_record(report_rows, captured_shards[STEP],
                                 "captured sweep-shards step (per-lane rows)")
+    del captured_shards
     print("kernels_rows " + json.dumps({"checks": report_rows,
                                         "record": rows_rec}), flush=True)
     phase("sweep_shards", t0)
@@ -3500,6 +3987,9 @@ def main() -> int:
     t0 = time.perf_counter()
     families, families_recs = serve_families_phase(args.seed, dev)
     phase("serve_families", t0)
+    t0 = time.perf_counter()
+    _, train_launches = train_phase(args.seed, dev, out_dir)
+    phase("train", t0)
     served_mla = families["serve-deepseek-v2-2l"]["launches"]
     consumers = {
         **{f"learned {cm}": line["launches"] for cm, line in learned.items()},
@@ -3507,6 +3997,7 @@ def main() -> int:
             learned["heterogeneous"]["live"]["launches"],
         **{f"pipeline {b}": v for b, v in pipe["launches"].items()},
         **{f"expert_cache {b}": v for b, v in expert["launches"].items()},
+        "train train_lm (shard cache, injected failure)": train_launches,
     }
     t0 = time.perf_counter()
     if args.profile:

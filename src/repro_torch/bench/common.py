@@ -36,10 +36,12 @@ N_SWEEP = int(os.environ.get("REPRO_BENCH_SWEEP_REQUESTS", "40000"))
 #: >1 splits each figure's request budget over per-seed trace replicas
 #: (the sweep's trace-shard axis), so figures report mean +- 95% CI
 N_SHARDS = int(os.environ.get("REPRO_BENCH_SHARDS", "1"))
-#: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): TF32 on the tensor
-#: cores (exact for the 0/1 products here: integer sums below 2**24 with
-#: fp32 accumulation), fp32 and fp64 outside the tensor cores (the scans'
-#: float64 comparisons count at the fp64 rate), and HBM3 bandwidth
+#: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): bf16 and TF32 on
+#: the tensor cores (TF32 exact for the 0/1 products here: integer sums
+#: below 2**24 with fp32 accumulation; bf16 for a training step's model
+#: FLOPs), fp32 and fp64 outside the tensor cores (the scans' float64
+#: comparisons count at the fp64 rate), and HBM3 bandwidth
+PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 PEAK_FP64 = 34e12

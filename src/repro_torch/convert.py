@@ -4,7 +4,8 @@ Data and state take the place of weights here: a trace, a pricing
 scenario's arrays, the cache state of a replay engine, a policy's window
 state (the AKPC policy's partition and previous-window CRM, the TTL
 policy's keep-or-not mask) and a learned policy's trained scorer; and the
-model zoo's parameters and KV caches.
+model zoo's parameters, KV caches and optimizer states, so a reference
+training run resumes in the port.
 Every function takes plain numpy arrays (read off ``repro``'s objects by
 the caller), so the port never imports ``repro``.
 """
@@ -139,3 +140,20 @@ def cache_from_arrays(tree: dict, dtype, device=None) -> dict:
     return _tensor_tree(
         tree, lambda path: torch.float32 if path[-1] in F32_CACHE else dtype,
         resolve_device(device))
+
+
+def opt_state_from_arrays(tree: dict, device=None) -> dict:
+    """The reference train step's optimizer state (nested dict of numpy
+    arrays) as the port's: AdamW's ``{m, v, step}`` or 8-bit AdamW's
+    ``{mv: {<param path>: {m_q, m_s, v_q, v_s}}, step}``, with the error
+    feedback under ``ef`` where the step compresses.  The codes ``m_q`` /
+    ``v_q`` are int8, ``step`` int32, every other leaf (moments, scales,
+    residuals) f32; on ``device`` (None: CUDA)."""
+    def dtype_for(path):
+        if path == ("step",):
+            return torch.int32
+        if path[0] == "mv" and path[-1] in ("m_q", "v_q"):
+            return torch.int8
+        return torch.float32
+
+    return _tensor_tree(tree, dtype_for, resolve_device(device))

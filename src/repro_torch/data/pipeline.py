@@ -142,6 +142,7 @@ class PackedDataPipeline:
         self.env = env
         self.cost_model = cost_model
         self.telemetry = PipelineTelemetry()
+        self._retired_windows = 0
 
     # -- determinism / checkpointing ---------------------------------------
     def state_dict(self) -> dict:
@@ -153,7 +154,14 @@ class PackedDataPipeline:
         # the cache session is an online stream and cannot rewind; crash
         # recovery restarts the cost accounting from the restore point
         if self.cache.now >= float(self.step):
+            self._retired_windows += self.cache.policy.n_windows
             self.cache = self._make_session()
+
+    @property
+    def windows(self) -> int:
+        """Clique-generation windows of every cache session this pipeline
+        ran, those a rewind replaced included."""
+        return self._retired_windows + self.cache.policy.n_windows
 
     # -- sampling ------------------------------------------------------------
     def _sample_shards(self, step: int) -> np.ndarray:

@@ -4,10 +4,15 @@
 
 * ``init(seed_or_generator) -> params``  (stacked-per-layer nested dict)
 * ``loss(params, batch, mesh=None) -> scalar``  (next-token CE + MoE aux;
-  the forward value only)
+  the value, under ``no_grad``)
 * ``prefill(params, batch, mesh=None) -> (logits_last, cache)``
 * ``decode_step(params, cache, tokens, pos, mesh=None) -> (logits, cache)``
 * ``init_cache(batch, cache_len, dtype) -> cache``  (zeros)
+
+and :func:`value_and_grad` ``(model, params, batch) -> (loss, grads)``,
+``jax.value_and_grad(model.loss)``, with every layer rematerialised in the
+backward (``torch.utils.checkpoint`` where the reference has
+``jax.checkpoint``).
 
 Families: decoder-only transformers (dense GQA, MoE, VLM and DeepSeek-V2's
 MLA, whose cache holds the compressed latent ``c`` / ``r``), the
@@ -26,11 +31,14 @@ self cache's length.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Any, Callable
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.replay import resolve_device
 from . import ssm as ssm_mod
@@ -57,6 +65,7 @@ from .common import (
     mm,
     rmsnorm,
     rope_angles,
+    tree_leaves,
     tree_map,
 )
 from .config import ModelConfig
@@ -74,6 +83,8 @@ class Model:
     decode_step: Callable
     init_cache: Callable
     device: torch.device = torch.device("cuda")
+    #: the loss without ``loss``'s ``no_grad`` context (:func:`value_and_grad`)
+    loss_fn: Callable | None = None
 
 
 def _generator(seed_or_gen, device: torch.device) -> torch.Generator:
@@ -94,6 +105,38 @@ def _n_layers(stack) -> int:
     while isinstance(stack, dict):
         stack = next(iter(stack.values()))
     return stack.shape[0]
+
+
+def _layers(stack) -> list:
+    """Every layer's parameters of a stacked ``(L, ...)`` tree, as views
+    from one ``unbind`` a leaf: the backward stacks the layers' gradients
+    once (indexing ``a[i]`` would add L full-size zero-padded gradients)."""
+    per_leaf = tree_map(lambda a: a.unbind(0), stack)
+    return [tree_map(lambda t: t[i], per_leaf)
+            for i in range(_n_layers(stack))]
+
+
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def _remat_layers(on: bool):
+    prev = getattr(_TLS, "remat", False)
+    _TLS.remat = on
+    try:
+        yield
+    finally:
+        _TLS.remat = prev
+
+
+def _remat(fn, *args):
+    """``fn(*args)``; under :func:`value_and_grad` (grad on, remat asked
+    for) its activations are recomputed in the backward from ``args``
+    instead of kept, as the reference's ``jax.checkpoint`` of a layer."""
+    if torch.is_grad_enabled() and getattr(_TLS, "remat", False):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def _sinusoid(pos, d):
@@ -181,9 +224,9 @@ def _decoder_hidden(cfg: ModelConfig, p, batch, mesh):
     for name, moe in stacks:
         if name not in p:
             continue
-        for i in range(_n_layers(p[name])):
-            x, aux = _decoder_block(cfg, _layer(p[name], i), x, aux, cos, sin,
-                                    mesh=mesh, moe=moe)
+        block = functools.partial(_decoder_block, cfg, mesh=mesh, moe=moe)
+        for lp in _layers(p[name]):
+            x, aux = _remat(block, lp, x, aux, cos, sin)
     return apply_norm(cfg.norm, p["final_norm"], x), aux
 
 
@@ -193,7 +236,6 @@ def _logits(cfg, p, h):
 
 
 def _decoder_loss(cfg: ModelConfig, p, batch, mesh=None):
-    """The loss value (no gradient in this slice)."""
     h, aux = _decoder_hidden(cfg, p, batch, mesh)
     if cfg.vlm is not None:                      # loss on the text positions
         h = h[:, -batch["tokens"].shape[1]:]
@@ -343,36 +385,41 @@ def _slice_norm(n, i=0):
     return {"scale": n["scale"][i], "bias": n["bias"][i]}
 
 
+def _enc_block(cfg, lp, x):
+    h = apply_norm("layernorm", lp["norm1"], x)
+    x = x + gqa_forward(lp["attn"], h, cfg, None, None, causal=False)
+    h = apply_norm("layernorm", lp["norm2"], x)
+    return x + mlp_forward(lp["mlp"], h, "gelu")
+
+
 def _encode(cfg, p, frames):
     B, Se, d = frames.shape
     x = frames + _sinusoid(torch.arange(Se, device=frames.device),
                            d)[None].to(frames.dtype)
-    for i in range(_n_layers(p["enc"])):
-        lp = _layer(p["enc"], i)
-        h = apply_norm("layernorm", lp["norm1"], x)
-        x = x + gqa_forward(lp["attn"], h, cfg, None, None, causal=False)
-        h = apply_norm("layernorm", lp["norm2"], x)
-        x = x + mlp_forward(lp["mlp"], h, "gelu")
+    for lp in _layers(p["enc"]):
+        x = _remat(functools.partial(_enc_block, cfg), lp, x)
     return apply_norm("layernorm", _slice_norm(p["enc_final"]), x)
 
 
+def _dec_block(cfg, lp, x, enc_out):
+    h = apply_norm("layernorm", lp["norm1"], x)
+    x = x + gqa_forward(lp["attn"], h, cfg, None, None, causal=True)
+    h = apply_norm("layernorm", lp["norm2"], x)
+    x = x + cross_forward(lp["cross"], h, cross_kv(lp["cross"], enc_out, cfg),
+                          cfg)
+    h = apply_norm("layernorm", lp["norm3"], x)
+    return x + mlp_forward(lp["mlp"], h, "gelu")
+
+
 def _encdec_loss(cfg: ModelConfig, p, batch, mesh=None):
-    """The loss value (no gradient in this slice)."""
     cdt = dtype_of(cfg.compute_dtype)
     enc_out = _encode(cfg, p, batch["frames"].to(cdt))
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = p["embed"][tokens.long()] + _sinusoid(
         torch.arange(S, device=enc_out.device), cfg.d_model)[None].to(cdt)
-    for i in range(_n_layers(p["dec"])):
-        lp = _layer(p["dec"], i)
-        h = apply_norm("layernorm", lp["norm1"], x)
-        x = x + gqa_forward(lp["attn"], h, cfg, None, None, causal=True)
-        h = apply_norm("layernorm", lp["norm2"], x)
-        x = x + cross_forward(lp["cross"], h, cross_kv(lp["cross"], enc_out,
-                                                       cfg), cfg)
-        h = apply_norm("layernorm", lp["norm3"], x)
-        x = x + mlp_forward(lp["mlp"], h, "gelu")
+    for lp in _layers(p["dec"]):
+        x = _remat(functools.partial(_dec_block, cfg), lp, x, enc_out)
     x = apply_norm("layernorm", _slice_norm(p["dec_final"]), x)
     logits = mm(x, p["embed"].T)
     return cross_entropy(logits, batch["labels"], batch.get("mask"))
@@ -450,31 +497,38 @@ def _encdec_decode(cfg: ModelConfig, p, cache, tokens, pos, mesh=None):
 # ===========================================================================
 # SSM / hybrid (Mamba2, Zamba2)
 # ===========================================================================
+def _mamba_block(cfg, lp, norm, x):
+    return x + ssm_mod.mamba_forward(lp, apply_norm("rmsnorm", norm, x), cfg)
+
+
+def _shared_block(cfg, p, x, cos, sin):
+    h = apply_norm("rmsnorm", p["shared_norm1"], x)
+    x = x + gqa_forward(p["shared_attn"], h, cfg, cos, sin, causal=True)
+    h = apply_norm("rmsnorm", p["shared_norm2"], x)
+    return x + mlp_forward(p["shared_mlp"], h, "silu")
+
+
 def _hybrid_forward(cfg: ModelConfig, p, x, mesh=None):
     g, k, rest = ssm_mod.hybrid_layout(cfg)
+    layers = _layers(p["mamba"])
+    norms = p["norm"].unbind(0)
+    block = functools.partial(_mamba_block, cfg)
 
     def run_slice(x, lo, hi):
         for i in range(lo, hi):
-            lp = _layer(p["mamba"], i)
-            x = x + ssm_mod.mamba_forward(
-                lp, apply_norm("rmsnorm", p["norm"][i], x), cfg)
+            x = _remat(block, layers[i], norms[i], x)
         return x
 
     if g > 0:
         S = x.shape[1]
         cos, sin = rope_angles(torch.arange(S, device=x.device), cfg.head_dim,
                                cfg.rope_theta)
-
-        def shared_block(x):
-            h = apply_norm("rmsnorm", p["shared_norm1"], x)
-            x = x + gqa_forward(p["shared_attn"], h, cfg, cos, sin,
-                                causal=True)
-            h = apply_norm("rmsnorm", p["shared_norm2"], x)
-            return x + mlp_forward(p["shared_mlp"], h, "silu")
-
+        shared = {name: p[name] for name in (
+            "shared_attn", "shared_mlp", "shared_norm1", "shared_norm2")}
         for gi in range(g):
             x = run_slice(x, gi * k, (gi + 1) * k)
-            x = shared_block(x)
+            x = _remat(functools.partial(_shared_block, cfg), shared, x, cos,
+                       sin)
         if rest:
             x = run_slice(x, g * k, g * k + rest)
     else:
@@ -495,7 +549,6 @@ def _init_ssm(cfg: ModelConfig, device: torch.device, seed_or_gen) -> Params:
 
 
 def _ssm_loss(cfg, p, batch, mesh=None):
-    """The loss value (no gradient in this slice)."""
     x = p["embed"][batch["tokens"].long()]
     x = _hybrid_forward(cfg, p, x, mesh)
     x = apply_norm("rmsnorm", p["final_norm"], x)
@@ -599,15 +652,17 @@ def _init_xlstm(cfg: ModelConfig, device: torch.device, seed_or_gen) -> Params:
 
 def _xlstm_forward(cfg, p, x):
     g, m = xlstm_mod.xlstm_layout(cfg)
+    mlstm, slstm = _layers(p["mlstm"]), _layers(p["slstm"])
     for gi in range(g):
         for i in range(gi * m, (gi + 1) * m):
-            x = xlstm_mod.mlstm_forward(_layer(p["mlstm"], i), x, cfg)
-        x = xlstm_mod.slstm_forward(_layer(p["slstm"], gi), x, cfg)
+            x = _remat(lambda lp, x: xlstm_mod.mlstm_forward(lp, x, cfg),
+                       mlstm[i], x)
+        x = _remat(lambda lp, x: xlstm_mod.slstm_forward(lp, x, cfg),
+                   slstm[gi], x)
     return x
 
 
 def _xlstm_loss(cfg, p, batch, mesh=None):
-    """The loss value (no gradient in this slice)."""
     x = _xlstm_forward(cfg, p, p["embed"][batch["tokens"].long()])
     x = rmsnorm(p["final_norm"], x)
     return cross_entropy(_logits(cfg, p, x), batch["labels"], batch.get("mask"))
@@ -672,6 +727,27 @@ def _with_ctx(fn):
     return wrapped
 
 
+def value_and_grad(model: Model, params, batch, mesh=None, remat: bool = True):
+    """``jax.value_and_grad(model.loss)(params, batch)``: ``(loss, grads)``,
+    ``grads`` a tree like ``params`` in each leaf's dtype (bf16 leaves get
+    bf16 gradients; a leaf the loss does not reach gets zeros).
+
+    The forward and the backward both run under the mesh context and
+    :func:`~repro_torch.models.common.f32_accumulation` (the backward's
+    bf16 GEMMs too), with every layer rematerialised (``remat``: its
+    activations recomputed in the backward, ``torch.utils.checkpoint``;
+    ``remat=False`` keeps them, with the same bits)."""
+    with use_mesh(mesh), torch.enable_grad(), f32_accumulation(), \
+            _remat_layers(remat):
+        p = tree_map(lambda a: a.detach().requires_grad_(), params)
+        leaves = tree_leaves(p)
+        loss = model.loss_fn(p, batch, mesh=mesh)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_leaf = {id(a): torch.zeros_like(a) if g is None else g
+               for a, g in zip(leaves, grads)}
+    return loss.detach(), tree_map(lambda a: by_leaf[id(a)], p)
+
+
 # ===========================================================================
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """The family's :class:`Model` on ``device`` (None: CUDA), dispatched
@@ -697,4 +773,4 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
                  _with_ctx(functools.partial(prefill, cfg)),
                  _with_ctx(functools.partial(decode, cfg)),
                  functools.partial(init_cache, cfg, dev),
-                 dev)
+                 dev, functools.partial(loss, cfg))

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import apply_rope, dense_init, einsum, mm, rmsnorm
+from .common import apply_rope, clip, dense_init, einsum, mm, rmsnorm
 from .config import ModelConfig
 from .shard_ctx import constrain, constrain_cache
 
@@ -101,9 +101,10 @@ def attention_chunked(q, k, v, *, causal: bool, window: int, chunk: int,
     """Online-softmax attention, O(chunk^2) live scores (flash-style).
 
     A Python loop over the static list of non-masked (q-chunk, kv-chunk)
-    block pairs (the reference's ``scan``); per-q-chunk running (max, sum,
-    acc) statistics live in (nq, ...) tensors updated at the block's q
-    index, in the reference's order and dtypes.
+    block pairs (the reference's ``scan``), in the reference's order and
+    dtypes.  Each q-chunk's running (max, sum, acc) statistics are tensors
+    of their own, replaced at every block and stacked at the end: nothing
+    is written in place, so autograd keeps what it saved.
     """
     B, Sq, H, Dk = q.shape
     Sk = k.shape[1]
@@ -119,9 +120,11 @@ def attention_chunked(q, k, v, *, causal: bool, window: int, chunk: int,
     pq, pk = _chunk_pairs(nq, nk, causal, window, chunk)
 
     dev = q.device
-    m = torch.full((nq, B, H, chunk), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((nq, B, H, chunk), dtype=torch.float32, device=dev)
-    acc = torch.zeros((nq, B, H, chunk, Dv), dtype=torch.float32, device=dev)
+    m = [torch.full((B, H, chunk), NEG_INF, dtype=torch.float32, device=dev)
+         ] * nq
+    l = [torch.zeros((B, H, chunk), dtype=torch.float32, device=dev)] * nq
+    acc = [torch.zeros((B, H, chunk, Dv), dtype=torch.float32, device=dev)
+           ] * nq
     ar = torch.arange(chunk, device=dev)
     for qi, kj in zip(pq, pk):
         s = einsum("bqhd,bkhd->bhqk", qc[qi], kc[kj]).float() * scale
@@ -129,15 +132,16 @@ def attention_chunked(q, k, v, *, causal: bool, window: int, chunk: int,
         s = torch.where(msk[None, None], s, NEG_INF)
         m_q, l_q, a_q = m[qi], l[qi], acc[qi]
         m_new = torch.maximum(m_q, s.amax(dim=-1))
-        # clamp: fully-masked rows keep m at NEG_INF and must not revive
-        corr = torch.exp(torch.clamp(m_q - m_new, -80.0, 0.0))
-        p = torch.exp(torch.clamp(s - m_new[..., None], -80.0, 0.0))
+        # clip: fully-masked rows keep m at NEG_INF and must not revive
+        corr = torch.exp(clip(m_q - m_new, -80.0, 0.0))
+        p = torch.exp(clip(s - m_new[..., None], -80.0, 0.0))
         p = torch.where(msk[None, None], p, 0.0)
         l_new = l_q * corr + p.sum(dim=-1)
         pv = einsum("bhqk,bkhd->bhqd", p.to(vc.dtype), vc[kj])
         a_new = a_q * corr[..., None] + pv.float()
         m[qi], l[qi], acc[qi] = m_new, l_new, a_new
-    o = acc / torch.clamp(l[..., None], min=1e-30)      # (nq, B, H, chunk, Dv)
+    # (nq, B, H, chunk, Dv)
+    o = torch.stack(acc) / clip(torch.stack(l)[..., None], 1e-30)
     o = o.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, Dv)
     return o.to(v.dtype)
 

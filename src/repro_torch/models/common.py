@@ -53,6 +53,22 @@ def f32_accumulation():
         flags.allow_bf16_reduced_precision_reduction = prev
 
 
+def clip(x: torch.Tensor, lo: float | None = None,
+         hi: float | None = None) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` (``jnp.maximum(x, lo)`` without ``hi``):
+    ``torch.clamp``'s value, with JAX's gradient.  At a bound the gradient
+    halves, as ``maximum`` / ``minimum`` split a tie evenly in both
+    packages; ``torch.clamp`` passes it whole.  Online-softmax and decay
+    terms sit on their upper bound wherever a running max does not move.
+    The bounds are CPU 0-d tensors, which a CUDA op takes as scalar
+    arguments: no device allocation and no fill launch."""
+    if lo is not None:
+        x = torch.maximum(x, torch.tensor(lo, dtype=x.dtype))
+    if hi is not None:
+        x = torch.minimum(x, torch.tensor(hi, dtype=x.dtype))
+    return x
+
+
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with JAX's dtype promotion."""
     a, b = promote(a, b)

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import einsum
+from .common import clip, einsum
 from .shard_ctx import constrain
 
 
@@ -61,14 +61,14 @@ def chunked_linear_attention(q, k, v, log_f, i_gate, *, chunk: int,
         # intra-chunk: masked decayed attention
         s = einsum("bchd,bjhd->bhcj", qb, kb).float()
         s = constrain(s, ("dp", "model", None, None))
-        dec = torch.exp(torch.clamp(A[:, :, None, :] - A[:, None, :, :],
-                                    -80.0, 0.0)).permute(0, 3, 1, 2)
+        dec = torch.exp(clip(A[:, :, None, :] - A[:, None, :, :],
+                               -80.0, 0.0)).permute(0, 3, 1, 2)
         ig = ib.transpose(1, 2)[:, :, None, :]       # (B,H,1,C) i_j a column
         s = s * dec * ig
         s = torch.where(tri[None, None], s, 0.0)
         y_intra = einsum("bhcj,bjhv->bchv", s.to(vb.dtype), vb)
         # state update
-        wk = ib * torch.exp(torch.clamp(A_last[:, None, :] - A, -80.0, 0.0))
+        wk = ib * torch.exp(clip(A_last[:, None, :] - A, -80.0, 0.0))
         state = state * torch.exp(A_last)[..., None, None] + einsum(
             "bjhd,bjhv->bhdv", (kb * wk[..., None]).float(), vb.float())
         state = constrain(state, ("dp", "model", None, None))

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import act_fn, dense_init, einsum, mm, silu
+from .common import act_fn, clip, dense_init, einsum, mm, silu
 from .config import ModelConfig
 
 
@@ -125,7 +125,7 @@ def route(p, x_flat, cfg: ModelConfig):
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.moe.top_k
     topk_w, topk_idx = w[:, :k], idx[:, :k]
-    topk_w = topk_w / torch.clamp(topk_w.sum(-1, keepdim=True), min=1e-9)
+    topk_w = topk_w / clip(topk_w.sum(-1, keepdim=True), 1e-9)
     return probs, topk_w, topk_idx
 
 

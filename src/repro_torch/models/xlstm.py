@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, gelu, mm, rmsnorm, silu
+from .common import clip, dense_init, gelu, mm, rmsnorm, silu
 from .config import ModelConfig
 from .linear_attn import chunked_linear_attention, linear_attention_step
 from .shard_ctx import constrain
@@ -68,7 +68,7 @@ def _mlstm_qkvg(p, x, cfg):
 def _mlstm_out(p, num_den, z, cfg):
     di, H, hd = _mlstm_dims(cfg)
     num, den = num_den[..., :hd], num_den[..., hd:]
-    h = num / torch.clamp(torch.abs(den), min=1.0)
+    h = num / clip(torch.abs(den), 1.0)
     B = h.shape[0]
     h = h.reshape(B, -1, di)
     h = rmsnorm(p["out_norm"], h) * silu(z)
@@ -118,7 +118,7 @@ def _slstm_cell(p, xt, carry):
     o = torch.sigmoid(g[..., 3 * d :])
     c_new = f * c + i * z
     n_new = f * n + i
-    h_new = (o * c_new / torch.clamp(n_new, min=1.0)).to(h.dtype)
+    h_new = (o * c_new / clip(n_new, 1.0)).to(h.dtype)
     return h_new, c_new, n_new
 
 

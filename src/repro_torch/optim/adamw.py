@@ -21,6 +21,11 @@ and ``cos``: the reference's schedule and bias corrections differ from
 these by one f32 ulp at some steps.
 Nothing here reads a value back to the host, so a step loop on the card
 makes no host sync.
+
+``inplace=True`` writes the new parameters, moments and step into the
+tensors passed in and returns those: the caller donates them, as a jitted
+step's donated buffers (a full-size model's second copy of the f32 moments
+does not fit beside the first on one card).  The values are the same bits.
 """
 from __future__ import annotations
 
@@ -110,9 +115,10 @@ def global_norm(tree: dict) -> torch.Tensor:
     return _rounded(torch.sqrt, total)
 
 
-def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
+def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params: dict,
+                 inplace: bool = False):
     """Returns ``(new_params, new_state, stats)``; nothing is modified in
-    place."""
+    place unless ``inplace``."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.minimum(
@@ -132,13 +138,21 @@ def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
         delta = mhat / (_rounded(torch.sqrt, vhat) + cfg.eps)
         wd = cfg.weight_decay if p.ndim >= 2 else 0.0   # no decay on biases
         p_new = p.to(torch.float32) * (1.0 - lr * wd) - lr * delta
-        return p_new.to(p.dtype), m_new, v_new
+        return donate((p, m, v), (p_new.to(p.dtype), m_new, v_new), inplace)
 
     out = tree_map(upd, grads, state["m"], state["v"], params)
 
     def part(i):
         return tree_map(lambda o: o[i], out)
 
+    (step,) = donate((state["step"],), (step,), inplace)
     return part(0), {"m": part(1), "v": part(2), "step": step}, {
         "grad_norm": gnorm, "lr": lr,
     }
+
+
+def donate(old: tuple, new: tuple, inplace: bool) -> tuple:
+    """``new``, or with ``inplace`` ``new`` copied into ``old``'s tensors."""
+    if not inplace:
+        return new
+    return tuple(o.copy_(n) for o, n in zip(old, new))

@@ -1489,3 +1489,73 @@ def test_family_prefill_and_decode_on_card_equals_cpu(cuda_device, arch,
             assert g.dtype == c.dtype
             assert _gap(g, c) <= tol
         pos = pos + 1
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+TRAIN_ARCHS = ["qwen2_5_3b", "granite_moe_3b_a800m", "deepseek_v2_236b",
+               "zamba2_1_2b", "xlstm_125m", "whisper_tiny"]
+
+
+def _train_batch(cfg, seed: int = 0, S: int = 32):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (2, 2, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (2, 2, S, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card_repeats_and_equals_cpu(cuda_device, arch):
+    """An f32 smoke config (qwen2.5 through the chunked attention): the
+    card's train step twice from one state gives the same bits, and its
+    loss and gradients equal the CPU's at 2e-5 of each leaf's largest."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import value_and_grad
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    if arch == "qwen2_5_3b":
+        cfg = dataclasses.replace(cfg, attn_impl="chunked", attn_chunk=8)
+    gm, cm = build_model(cfg, device=cuda_device), build_model(cfg, "cpu")
+    gp = gm.init(0)
+    cp = tree_map(lambda a: a.cpu(), gp)
+    batch = _train_batch(cfg)
+    first = {k: torch.from_numpy(v[0]) for k, v in batch.items()}
+    gl, gg = value_and_grad(gm, gp, {k: v.to(cuda_device)
+                                     for k, v in first.items()})
+    cl, cg = value_and_grad(cm, cp, first)
+    assert abs(float(gl) - float(cl)) <= 2e-5 * abs(float(cl))
+    for g, c in zip(model_leaves(gg), model_leaves(cg)):
+        gap = (g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30)
+        assert float(gap) <= 2e-5
+    step = make_train_step(gm, AdamWConfig(lr=1e-3, warmup_steps=0))
+    runs = [step(tree_map(torch.clone, gp), adamw_init(gp), batch)
+            for _ in range(2)]
+    for a, b in zip(model_leaves(runs[0][0]), model_leaves(runs[1][0])):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][2]["loss"], runs[1][2]["loss"])
+
+
+def test_checkpoint_restores_onto_card(cuda_device, tmp_path):
+    """A manager's snapshot of card tensors (bf16, int8, int32) restores
+    onto the card with the same bits and dtypes."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    tree = {"w": torch.randn(5, 7, device=cuda_device).to(torch.bfloat16),
+            "q": torch.randint(-127, 128, (9,), dtype=torch.int8,
+                               device=cuda_device),
+            "step": torch.tensor(3, dtype=torch.int32, device=cuda_device)}
+    mgr = CheckpointManager(tmp_path, keep=1, async_save=True)
+    mgr.save(1, tree)
+    mgr.wait()
+    like = tree_map(torch.zeros_like, tree)
+    step, back, _ = mgr.restore_latest(like)
+    assert step == 1
+    for k in tree:
+        assert back[k].device.type == "cuda" and back[k].dtype == tree[k].dtype
+        assert torch.equal(back[k], tree[k])
