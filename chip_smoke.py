@@ -209,8 +209,9 @@
     (kernels a step, device-busy time, idle share), then 2 steps of 8-bit
     AdamW with error-feedback compression; step seconds, tokens/s, peak
     memory, the model-FLOP share of the bf16 peak, finite losses and grad
-    norms.  Then, for qwen2.5-3b at full width cut to 2 layers (2,048
-    positions: the chunked attention and its backward), granite-moe at
+    norms.  Then, for qwen2.5-3b at full width cut to 2 layers (512
+    positions at a 256-position attention chunk: the chunked
+    attention and its backward), granite-moe at
     full width cut to 2 layers and the f32 smoke configs of deepseek-v2,
     zamba2, xlstm, whisper and phi-3-vision: the train step's mean loss
     and gradient over both microbatches on the card against the CPU
@@ -225,6 +226,26 @@
     and with a failure at step 60: equal final parameters bit for bit,
     one restart, the loss falling, the shard cache's ``crm_update``,
     ``clique_pair_edges`` and ``merge_density`` once a window;
+13i. ``prod_mesh``: the production mesh's expert-parallel branches on
+    the card, full-width granite-moe-3b-a800m under a logical (data 2,
+    model 4) mesh of one card.  The dry run's ``decode_32k`` cell cut to 8
+    rows x 4,096 cached positions (``launch.specs.build_cell`` /
+    ``instantiate_cell``; the weight-stationary branch in every layer), 4
+    steps meshed and unmeshed: ms a step both ways in bf16, the logits
+    held in f32 at ``TRAIN_F32_TOL`` (bf16 gaps printed).  A 2-layer f32
+    cut trained on 2 microbatches of 4 x 512 positions (the token-sharded
+    branch): ``make_train_step(mesh=)`` and the mean gradient on the card
+    against the CPU under a CPU mesh of the same shape, the meshed loss
+    beside the unmeshed one;
+13j. ``dryrun``: ``launch.dryrun.run_cell`` for qwen2.5-3b x
+    ``decode_32k`` and deepseek-v2-236b x ``train_4k`` on both production
+    meshes (meta tensors; each record printed, each ``ok``); the decode
+    cell above on a (1, 1) mesh made real on the card, its allocation
+    within 1% of the dry run's argument bytes, one step's peak printed
+    beside the dry run's;
+13k. ``examples``: ``python -m repro_torch.examples.quickstart`` at 20,000
+    requests on the card and on the CPU: every run's costs equal at 1e-9,
+    the streamed total equal to the offline one, rows 1-3 and 6 launched;
 14. prints the kernels' JSON line and, last, the result line.
 
 Exits non-zero without CUDA, and on any failed check or exception.
@@ -314,7 +335,10 @@ from repro_torch.core.replay import (  # noqa: E402
     state_to_device,
 )
 from repro_torch.core.state_layout import StateLayout  # noqa: E402
-from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_sweep_mesh,
+    make_test_mesh,
+)
 from repro_torch.kernels.merge_step import (  # noqa: E402
     merge_density_lanes_plain,
 )
@@ -344,14 +368,24 @@ from repro_torch.learned import hindsight_windows, train_policy  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
+    quickstart,
     serve_moe_expert_cache as moe_example,
     train_lm,
+)
+from repro_torch.launch.dryrun import run_cell  # noqa: E402
+from repro_torch.launch.specs import (  # noqa: E402
+    arg_bytes,
+    build_cell,
+    instantiate_cell,
+    trace_cell,
 )
 from repro_torch.launch.train import (  # noqa: E402
     accumulate_gradients,
     apply_gradients,
+    make_eval_step,
     make_train_step,
 )
+from repro_torch.models.shard_ctx import recording_collectives  # noqa: E402
 from repro_torch.models import build_model, value_and_grad  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, ef_init  # noqa: E402
 from repro_torch.optim.adamw8bit import adamw8bit_init  # noqa: E402
@@ -3367,11 +3401,13 @@ TRAIN_STEPS, TRAIN_STEPS_8BIT = 3, 2
 #: parameters, two microbatches: arch -> (layers, sequence, microbatch
 #: rows, modes); layers None: the smoke config in f32 (sequence None: two
 #: of its recurrent chunks, else TRAIN_CROSS_SMOKE_SEQ positions).  qwen's
-#: 2,048 positions pass its attn_chunk (1,024): the chunked attention and
-#: its backward run; granite-moe runs the MoE dispatch backward and the
-#: aux loss
+#: 512 positions pass its attn_chunk, cut to TRAIN_CROSS_CHUNK: two
+#: chunks, the chunked attention and its backward run (2,048 positions at
+#: the config's 1,024 made qwen's CPU side, bf16 GEMMs on the chip host's
+#: CPU, most of the part's 193 s); granite-moe runs the MoE dispatch
+#: backward and the aux loss
 TRAIN_CROSS = {
-    "qwen2_5_3b": (2, 2048, 1, ("adamw", "compress_8bit")),
+    "qwen2_5_3b": (2, 512, 1, ("adamw", "compress_8bit")),
     "granite_moe_3b_a800m": (2, 256, 1, ("adamw",)),
     "deepseek_v2_236b": (None, None, 2, ("adamw",)),
     "zamba2_1_2b": (None, None, 2, ("adamw",)),
@@ -3380,6 +3416,7 @@ TRAIN_CROSS = {
     "phi_3_vision_4_2b": (None, None, 2, ("adamw",)),
 }
 TRAIN_CROSS_SMOKE_SEQ = 24
+TRAIN_CROSS_CHUNK = {"qwen2_5_3b": 256}
 #: ``tests/test_torch_models.py``'s tolerances, of each leaf's largest
 #: magnitude: f32 sums in other orders (2e-5), bf16's 8 bits (CROSS_TOL)
 TRAIN_F32_TOL = 2e-5
@@ -3650,6 +3687,8 @@ def train_cross_case(arch: str, seed: int, dev) -> dict:
         seq = 2 * rec.chunk if rec else TRAIN_CROSS_SMOKE_SEQ
     else:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        if arch in TRAIN_CROSS_CHUNK:
+            cfg = dataclasses.replace(cfg, attn_chunk=TRAIN_CROSS_CHUNK[arch])
     f32 = cfg.param_dtype == "float32"
     tol = TRAIN_F32_TOL if f32 else CROSS_TOL
     gm = build_model(cfg, device=dev)
@@ -3798,6 +3837,269 @@ def train_phase(seed: int, dev, out_dir) -> tuple[dict, dict]:
     line["part_s"] = times
     print("train " + json.dumps(line), flush=True)
     return line, line["train_lm"]["failure"]["launches"]
+
+
+#: ``prod_mesh``: full granite-moe-3b-a800m on a logical (data 2, model 4)
+#: mesh of one card.  The decode cell is ``decode_32k`` cut to 8 rows x
+#: 4,096 cached positions (the full 128 x 32,768 cache alone is ~0.5 TB):
+#: 8 tokens a step send it down the weight-stationary branch
+PROD_ARCH = "granite_moe_3b_a800m"
+PROD_SHARDS = 8
+PROD_DECODE = (8, 4096)
+PROD_DECODE_STEPS = 4
+#: the train cell: 2 layers at full width in f32, microbatches of 4 rows x
+#: 512 positions (T 2,048, above the weight-stationary branch's 1,024: the
+#: token-sharded branch), two of them
+PROD_TRAIN = (2, 4, 512, 2)
+#: the dry run's cells, each on both production meshes
+DRYRUN_CELLS = (("qwen2_5_3b", "decode_32k"), ("deepseek_v2_236b", "train_4k"))
+DRYRUN_ARG_RTOL = 0.01
+#: the examples phase: the quickstart's runs at this many requests
+EXAMPLE_REQUESTS = 20_000
+EXAMPLE_RTOL = 1e-9
+
+
+def moe_branches(log) -> dict:
+    """How many MoE layers took each expert-parallel branch."""
+    out: dict = {}
+    for r in log:
+        out[r.what] = out.get(r.what, 0) + 1
+    return out
+
+
+def decode_runs(model, params, cache0, toks, pos, mesh) -> tuple:
+    """``len(toks)`` decode steps from ``cache0``: the logits, ms a step
+    (CUDA events) and the MoE branches taken."""
+    cache, logits, times = cache0, [], []
+    with recording_collectives() as log:
+        for i, tok in enumerate(toks):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            lg, cache = model.decode_step(params, cache, tok, pos + i,
+                                          mesh=mesh)
+            stop.record()
+            logits.append(lg)
+            times.append((start, stop))
+    torch.cuda.synchronize()
+    for lg in logits:
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError("prod_mesh decode: non-finite logits")
+    return logits, [a.elapsed_time(b) for a, b in times], moe_branches(log)
+
+
+def logits_gap(got: list, want: list) -> float:
+    return max(float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max()) for g, w in zip(got, want))
+
+
+def prod_decode(seed: int, dev, mesh) -> dict:
+    """The decode cell meshed against unmeshed on the card, 4 steps from
+    one seeded cache on the same tokens: ms a step both ways in bf16, and
+    the logits held in f32 (the same weights and cache widened) at
+    TRAIN_F32_TOL of the unmeshed largest.  The bf16 gap is printed, not
+    held, beside the card's own bf16-against-f32 gap: granite's router
+    picks 8 of 40 experts from bf16 activations, and the weight-stationary
+    branch rounds each shard's partial to bf16, so over 32 layers a
+    reordered pair of experts moves whole tokens (as ``train_cross``'s
+    granite gradients, ROADMAP queue 3)."""
+    B, S = PROD_DECODE
+    cell = build_cell(PROD_ARCH, "decode_32k", mesh, global_batch=B,
+                      seq_len=S)
+    real = instantiate_cell(cell, dev, seed)
+    params, cache0, tokens, pos = real.args
+    rng = np.random.default_rng(seed)
+    toks = [tokens] + [torch.from_numpy(rng.integers(
+        0, cell.cfg.vocab, (B, 1), dtype=np.int64)).to(dev)
+        for _ in range(PROD_DECODE_STEPS - 1)]
+    L = cell.cfg.n_layers
+    want = {"moe_weight_stationary": L * PROD_DECODE_STEPS}
+    bf16, f32, ms = {}, {}, {}
+    for tag, m in (("meshed", mesh), ("unmeshed", None)):
+        bf16[tag], ms[tag], branches = decode_runs(real.model, params,
+                                                   cache0, toks, pos, m)
+        if m is not None and branches != want:
+            raise AssertionError(f"prod_mesh decode: branches {branches}")
+    model32 = build_model(f32_variant(cell.cfg), device=dev)
+    params = tree_map(lambda a: a.float(), params)
+    cache0 = tree_map(lambda a: a.float(), cache0)
+    torch.cuda.empty_cache()
+    for tag, m in (("meshed", mesh), ("unmeshed", None)):
+        f32[tag] = decode_runs(model32, params, cache0, toks, pos, m)[0]
+    gaps = {"float32": logits_gap(f32["meshed"], f32["unmeshed"]),
+            "bfloat16_not_held": logits_gap(bf16["meshed"], bf16["unmeshed"]),
+            "bfloat16_against_float32_unmeshed": logits_gap(
+                bf16["unmeshed"], f32["unmeshed"])}
+    if gaps["float32"] > TRAIN_F32_TOL:
+        raise AssertionError(f"prod_mesh decode: meshed logits {gaps} of "
+                             f"the unmeshed largest, tolerance "
+                             f"{TRAIN_F32_TOL}")
+    del real, params, cache0, bf16, f32, model32
+    torch.cuda.empty_cache()
+    return {"config": cell.cfg.name, "layers": L, "d_model": cell.cfg.d_model,
+            "experts": [cell.cfg.moe.n_experts, cell.cfg.moe.top_k],
+            "dtype": cell.cfg.param_dtype,
+            "cut": f"batch {B} of 128, cache {S} of 32,768",
+            "steps": PROD_DECODE_STEPS, "branches": want,
+            "gaps": gaps, "tolerance": TRAIN_F32_TOL,
+            "ms_meshed": ms["meshed"], "ms_unmeshed": ms["unmeshed"]}
+
+
+def prod_train(seed: int, dev, mesh) -> dict:
+    """One train step of the cut granite under the logical mesh on the card
+    (``make_train_step(mesh=)``, and ``accumulate_gradients`` for its mean
+    gradient) against the same step's halves on the CPU under a CPU mesh
+    of the same shape: mean gradient, loss and grad norm at 2e-5; the
+    meshed loss printed beside the unmeshed one."""
+    layers, rows, seq, accum = PROD_TRAIN
+    cfg = f32_variant(dataclasses.replace(get_config(PROD_ARCH),
+                                          n_layers=layers))
+    cpu_mesh = make_test_mesh(devices=["cpu"] * PROD_SHARDS)
+    gm = build_model(cfg, device=dev)
+    gp = gm.init(seed)
+    cp = tree_map(lambda a: a.cpu(), gp)
+    batch = lm_batch(np.random.default_rng(seed), cfg, accum, rows, seq)
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    with recording_collectives() as log:
+        g_loss, g_grad = accumulate_gradients(gm, gp, batch, mesh=mesh)
+    branches = moe_branches(log)
+    t0 = time.perf_counter()
+    _, _, gstats = make_train_step(gm, opt_cfg, mesh=mesh)(
+        clone_tree(gp), adamw_init(gp), batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    unmeshed = make_eval_step(gm)
+    plain_loss = sum(float(unmeshed(gp, {k: v[i] for k, v in batch.items()}))
+                     for i in range(accum)) / accum
+    cm = build_model(cfg, device="cpu")
+    c_loss, c_grad = accumulate_gradients(cm, cp, batch, mesh=cpu_mesh)
+    _, _, cstats = apply_gradients(opt_cfg, clone_tree(c_grad), cp,
+                                   adamw_init(cp))
+    gaps = {"grads": tree_gap(g_grad, c_grad),
+            "loss": rel_gap(g_loss, c_loss),
+            "step_loss": rel_gap(gstats["loss"], c_loss),
+            "grad_norm": rel_gap(gstats["grad_norm"], cstats["grad_norm"])}
+    want = {"moe_token_sharded": layers * accum}
+    if branches != want:
+        raise AssertionError(f"prod_mesh train: branches {branches}, "
+                             f"expected {want}")
+    if max(gaps.values()) > TRAIN_F32_TOL:
+        raise AssertionError(f"prod_mesh train: the card differs from the "
+                             f"CPU: {gaps} (tolerance {TRAIN_F32_TOL})")
+    del gm, gp, cp, g_grad, c_grad
+    torch.cuda.empty_cache()
+    return {"config": cfg.name,
+            "layers": f"{layers} of {get_config(PROD_ARCH).n_layers} (cut)",
+            "dtype": "float32", "rows": rows, "seq": seq, "accum": accum,
+            "tokens_a_microbatch": rows * seq, "branches": branches,
+            "gaps": gaps, "tolerance": TRAIN_F32_TOL,
+            "loss_meshed": float(g_loss), "loss_unmeshed": plain_loss,
+            "step_s": step_s}
+
+
+def prod_mesh_phase(seed: int, dev) -> dict:
+    """The production mesh's branches on the card: the decode and train
+    cells of full-width granite-moe-3b-a800m under a logical (2, 4) mesh."""
+    mesh = make_test_mesh(devices=[str(dev)] * PROD_SHARDS)
+    line = {"mesh": mesh.shape, "logical_shards_of": str(dev)}
+    t0 = time.perf_counter()
+    line["decode"] = prod_decode(seed, dev, mesh)
+    line["decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["train"] = prod_train(seed, dev, mesh)
+    line["train_s"] = time.perf_counter() - t0
+    print("prod_mesh " + json.dumps(line), flush=True)
+    return line
+
+
+def dryrun_phase(seed: int, dev) -> dict:
+    """``run_cell`` for DRYRUN_CELLS on both production meshes (every record
+    printed, each must be ``ok``), then the decode cell of ``prod_mesh`` on a
+    (1, 1) mesh instantiated on the card: the allocation it takes against
+    the dry run's argument bytes (held within DRYRUN_ARG_RTOL) and one
+    step's peak against the dry run's (printed)."""
+    line: dict = {"records": []}
+    for arch, shape in DRYRUN_CELLS:
+        for mesh_kind in ("single", "multi"):
+            t0 = time.perf_counter()
+            rec = run_cell(arch, shape, mesh_kind)
+            rec["wall_s"] = time.perf_counter() - t0
+            print("dryrun_record " + json.dumps(rec), flush=True)
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun {arch} {shape} {mesh_kind}: "
+                                     f"{rec}")
+            line["records"].append({k: rec[k] for k in (
+                "arch", "shape", "mesh", "wall_s", "live_bytes_per_dev",
+                "fits_hbm", "dominant", "roofline_fraction")})
+    B, S = PROD_DECODE
+    cell = build_cell(PROD_ARCH, "decode_32k",
+                      make_test_mesh(devices=[str(dev)]), global_batch=B,
+                      seq_len=S)
+    predicted = arg_bytes(cell)
+    cost = trace_cell(cell)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    real = instantiate_cell(cell, dev, seed)
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated() - base
+    gap = abs(got - predicted) / predicted
+    torch.cuda.reset_peak_memory_stats()
+    out = real.step_fn(*real.args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, real
+    torch.cuda.empty_cache()
+    line["arg_bytes"] = {"cell": f"{PROD_ARCH} decode_32k cut to {B} x {S}, "
+                                 "(1, 1) mesh", "dry_run": predicted,
+                         "memory_allocated": got, "gap": gap,
+                         "tolerance": DRYRUN_ARG_RTOL}
+    line["peak_bytes"] = {"dry_run_arg_plus_temp": predicted + cost.peak_bytes,
+                          "max_memory_allocated": peak,
+                          "held": False}
+    print("dryrun " + json.dumps(line), flush=True)
+    if gap > DRYRUN_ARG_RTOL:
+        raise AssertionError(f"dryrun: the card allocated {got} bytes for the "
+                             f"cell's arguments, the dry run says "
+                             f"{predicted}")
+    return line
+
+
+def examples_phase() -> dict:
+    """``python -m repro_torch.examples.quickstart`` at EXAMPLE_REQUESTS on
+    the card and on the CPU: every run's costs equal at EXAMPLE_RTOL, the
+    streamed total equal to the offline AKPC (the example holds it) and to
+    the CPU's; the device CGM's three kernels and the host schedule's
+    lookup launched."""
+    argv = ["--requests", str(EXAMPLE_REQUESTS)]
+    reset_launches()
+    t0 = time.perf_counter()
+    card = quickstart.main(argv)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    cpu = quickstart.main(argv + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    gaps = {}
+    for label, want in cpu["rows"].items():
+        got = card["rows"][label]
+        gaps[label] = max(abs(getattr(got, f) - getattr(want, f))
+                          / max(abs(getattr(want, f)), 1e-30)
+                          for f in ("transfer", "caching", "total"))
+    gaps["stream"] = rel_gap(card["stream_total"], cpu["stream_total"])
+    line = {"requests": EXAMPLE_REQUESTS, "card_s": card_s, "cpu_s": cpu_s,
+            "totals": {k: v.total for k, v in card["rows"].items()},
+            "stream_total": card["stream_total"], "gaps": gaps,
+            "rtol": EXAMPLE_RTOL, "launches": launches}
+    print("examples " + json.dumps(line), flush=True)
+    if max(gaps.values()) > EXAMPLE_RTOL:
+        raise AssertionError(f"examples: the card's quickstart differs from "
+                             f"the CPU's: {gaps}")
+    for k in CGM_KERNELS + ("packed_lookup",):
+        if launches[k] < 1:
+            raise AssertionError(f"examples: {k} never launched")
+    return line
 
 
 def main() -> int:
@@ -3990,6 +4292,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _, train_launches = train_phase(args.seed, dev, out_dir)
     phase("train", t0)
+    t0 = time.perf_counter()
+    prod_mesh_phase(args.seed, dev)
+    phase("prod_mesh", t0)
+    t0 = time.perf_counter()
+    dryrun_phase(args.seed, dev)
+    phase("dryrun", t0)
+    t0 = time.perf_counter()
+    examples = examples_phase()
+    phase("examples", t0)
     served_mla = families["serve-deepseek-v2-2l"]["launches"]
     consumers = {
         **{f"learned {cm}": line["launches"] for cm, line in learned.items()},
@@ -3998,6 +4309,7 @@ def main() -> int:
         **{f"pipeline {b}": v for b, v in pipe["launches"].items()},
         **{f"expert_cache {b}": v for b, v in expert["launches"].items()},
         "train train_lm (shard cache, injected failure)": train_launches,
+        "examples quickstart": examples["launches"],
     }
     t0 = time.perf_counter()
     if args.profile:

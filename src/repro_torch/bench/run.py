@@ -4,15 +4,15 @@
 
 The port of ``benchmarks/run.py``, with its suite names: ``replay``,
 ``sweep``, ``table1``, ``fig5``, ``fig6``, ``fig7``, ``fig8``, ``fig9``,
-``fig10``, ``kernels`` and ``integration``, in that order (all of them
-without ``suite``).  Each prints ``name,us_per_call,derived`` CSV rows,
+``fig10``, ``kernels``, ``integration`` and ``roofline``, in that order
+(all of them without ``suite``).  Each prints ``name,us_per_call,derived`` CSV rows,
 writes its JSON payload under ``REPRO_RESULTS`` and runs on ``--device``
 (default CUDA, raising without it).  ``--smoke`` runs each suite at its
 smoke size (the suite's own ``--smoke`` where it has one, 3,000 requests
 for fig5 and fig6, the small kernel-bench shapes).  A suite that fails
-its gate fails the driver.  The reference's ``roofline`` suite reads the
-model zoo's dry-run artifacts, which the port does not have yet (ROADMAP
-queue 1, item 6).  Budget knobs (env): ``REPRO_BENCH_REQUESTS`` (fig5),
+its gate fails the run.  ``roofline`` reads the dry run's records
+(``python -m repro_torch.launch.dryrun``; ``REPRO_DRYRUN``) and runs on no
+device.  Budget knobs (env): ``REPRO_BENCH_REQUESTS`` (fig5),
 ``REPRO_BENCH_SWEEP_REQUESTS`` (a sweep point).
 """
 from __future__ import annotations
@@ -35,6 +35,7 @@ SUITES = (
     ("fig10", "fig10"),
     ("kernels", "kernel_bench"),
     ("integration", "integration_bench"),
+    ("roofline", "roofline_report"),
 )
 #: each suite's arguments at its smoke size
 SMOKE_ARGS = {
@@ -60,7 +61,7 @@ def main(argv=None) -> int:
             continue
         mod = importlib.import_module(f"{__package__}.{module}")
         argv_s = (SMOKE_ARGS.get(name, []) if args.smoke else [])
-        if args.device is not None and name != "table1":
+        if args.device is not None and name not in ("table1", "roofline"):
             argv_s = argv_s + ["--device", args.device]
         t0 = time.time()
         rc = mod.main(argv_s)

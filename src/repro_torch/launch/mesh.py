@@ -15,8 +15,14 @@ state and the lanes exactly as distinct devices would, so a 4-way mesh
 runs on the CPU (``devices=["cpu"] * 4``) or on one card
 (``devices=["cuda:0"] * 4``).
 
-``make_production_mesh`` (the model zoo's (data, model) pod meshes) waits
-for the model scaffolding that uses it (ROADMAP queue 1, item 6).
+The model zoo's production meshes (:func:`make_production_mesh`: (data
+16, model 16) and (pod 2, data 16, model 16)) are the same object over
+logical shards of one device by default.  The parameter, batch and cache
+specs (:mod:`repro_torch.launch.sharding`) are statements about placement
+on such a mesh; the MoE layer's expert-parallel branches compute shard by
+shard (:func:`repro_torch.models.mlp.moe_forward`).  On the ``meta``
+device a mesh holds shapes only: the dry run
+(:mod:`repro_torch.launch.dryrun`) sizes its cells on one.
 """
 from __future__ import annotations
 
@@ -60,9 +66,9 @@ class SweepMesh:
             raise ValueError(f"mesh axis names repeat: {self.axis_names}")
         flat = [canonical_device(d) for d in devs.reshape(-1)]
         kinds = {d.type for d in flat}
-        if len(kinds) != 1 or kinds - {"cpu", "cuda"}:
-            raise ValueError(f"a mesh spans cuda or cpu devices of one "
-                             f"kind, not {sorted(kinds)}")
+        if len(kinds) != 1 or kinds - {"cpu", "cuda", "meta"}:
+            raise ValueError(f"a mesh spans cuda, cpu or meta devices of "
+                             f"one kind, not {sorted(kinds)}")
         canon = np.empty(devs.shape, dtype=object)
         canon.reshape(-1)[:] = flat
         object.__setattr__(self, "axis_names", tuple(self.axis_names))
@@ -117,6 +123,25 @@ def _mesh(shape: tuple, axes: tuple, devs: list) -> SweepMesh:
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
     return SweepMesh(axes, arr.reshape(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None
+                         ) -> SweepMesh:
+    """Single pod: (data=16, model=16), 256 shards.  Multi-pod: (pod=2,
+    data=16, model=16), 512 shards.
+
+    ``devices``: a list of 256 (512) devices, or one device repeated as
+    logical shards; default: logical shards of the current CUDA device
+    (raises without CUDA).  ``"meta"`` gives a shapes-only mesh."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    if devices is None:
+        devices = "cuda"
+    if isinstance(devices, (str, torch.device)):
+        devices = [canonical_device(devices)] * n
+    devs = _devices(n, devices)
+    return _mesh(shape, axes, devs)
 
 
 def make_test_mesh(n_devices: int | None = None, *, devices=None):

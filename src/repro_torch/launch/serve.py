@@ -1,24 +1,27 @@
-"""Serving launcher: a local driver of the reduced configs on the card.
+"""Serving launcher: the production-mesh dry run of a serve cell, and a
+local run of the reduced configs on the card.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --dry
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --local
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --local
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --local --device cpu
 
-Every arch of ``repro_torch.configs`` serves at its smoke config.
-
-The port of ``repro.launch.serve``.  ``--dry`` (lower and compile the
-serve step on the production mesh) waits for the dry-run slice and raises.
+The port of ``repro.launch.serve``.  ``--dry`` sizes ``--shape``'s cell on
+the single-pod production mesh (``launch.dryrun.run_cell``: meta tensors,
+no device) and prints its status, dominant roofline term, roofline
+fraction and whether it fits the card's HBM.  With ``--local`` every arch
+of ``repro_torch.configs`` serves at its smoke config.
 """
 from __future__ import annotations
 
 import argparse
 
 
-def main(argv=None) -> list:
+def main(argv=None) -> list | dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--dry", action="store_true",
-                    help="lower+compile the serve step on the production mesh")
+                    help="size the serve cell on the production mesh")
     ap.add_argument("--local", action="store_true",
                     help="run the reduced config on the local device")
     ap.add_argument("--device", default=None,
@@ -26,9 +29,14 @@ def main(argv=None) -> list:
     args = ap.parse_args(argv)
 
     if args.dry:
-        raise NotImplementedError(
-            "--dry needs the dry-run machinery (launch/dryrun.py), which the "
-            "port does not have yet (ROADMAP, queue 1, item 6: dryrun)")
+        from ..configs import resolve
+        from .dryrun import run_cell
+
+        rec = run_cell(resolve(args.arch), args.shape, "single")
+        out = {k: rec[k] for k in ("status", "dominant", "roofline_fraction",
+                                   "fits_hbm") if k in rec}
+        print(out)
+        return out
 
     import numpy as np
 

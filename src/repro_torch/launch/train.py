@@ -15,6 +15,12 @@ are written into the tensors passed in and returned (a jitted step's
 donated buffers; a full-size model's second copy of its f32 moments does
 not fit beside the first on one card).  A caller that needs the old state
 clones it first.  The values are those of the reference's functional step.
+
+Under ``mesh=`` every microbatch's loss runs under that mesh (the MoE
+layers' expert-parallel branches, the sharding hints); the accumulator is
+placed as the parameters are (``launch.sharding.param_shardings``: the
+dry run's gradient reduce-scatters), on the single-process mesh a
+placement statement.
 """
 from __future__ import annotations
 
@@ -56,13 +62,6 @@ def choose_accum(cfg: ModelConfig, seq_len: int, global_batch: int,
     return accum
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a train step under a mesh needs the production mesh (ROADMAP, "
-            "queue 1, item 6d: the production mesh)")
-
-
 def to_device(batch: dict, device) -> dict:
     """A batch's leaves (numpy arrays or tensors) as tensors on ``device``."""
     return {k: torch.as_tensor(np.asarray(v) if not isinstance(
@@ -70,10 +69,11 @@ def to_device(batch: dict, device) -> dict:
 
 
 def accumulate_gradients(model: Model, params: dict, batch: dict,
-                         accum_dtype=torch.float32):
+                         accum_dtype=torch.float32, mesh=None):
     """The gradient half of the train step: ``(loss, g)``, the mean loss
     over the batch's leading ``accum`` axis and the mean gradient, summed
-    microbatch by microbatch in ``accum_dtype`` and divided by ``accum``."""
+    microbatch by microbatch in ``accum_dtype`` and divided by ``accum``;
+    each microbatch under ``mesh``."""
     batch = to_device(batch, model.device)
     accum = next(iter(batch.values())).shape[0]
     g = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
@@ -81,7 +81,7 @@ def accumulate_gradients(model: Model, params: dict, batch: dict,
     lsum = torch.zeros((), dtype=torch.float32, device=model.device)
     for i in range(accum):
         loss, grads = value_and_grad(
-            model, params, {k: v[i] for k, v in batch.items()})
+            model, params, {k: v[i] for k, v in batch.items()}, mesh=mesh)
         tree_map(lambda a, b: a.add_(b.to(accum_dtype)), g, grads)
         lsum = lsum + loss
         del grads
@@ -121,10 +121,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None,
     ``opt_state`` is ``adamw_init(params)`` or, with ``opt_8bit``,
     ``adamw8bit_init(params)``; with ``compress`` it also carries the error
     feedback under ``"ef"`` (``ef_init(params)``)."""
-    _no_mesh(mesh)
-
     def train_step(params, opt_state, batch):
-        loss, g = accumulate_gradients(model, params, batch, accum_dtype)
+        loss, g = accumulate_gradients(model, params, batch, accum_dtype,
+                                       mesh)
         new_p, new_o, stats = apply_gradients(opt_cfg, g, params, opt_state,
                                               compress, opt_8bit)
         stats["loss"] = loss
@@ -134,10 +133,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None,
 
 
 def make_eval_step(model: Model, mesh=None):
-    """``eval_step(params, batch) -> loss`` (no gradient)."""
-    _no_mesh(mesh)
-
+    """``eval_step(params, batch) -> loss`` (no gradient), under ``mesh``."""
     def eval_step(params, batch):
-        return model.loss(params, to_device(batch, model.device))
+        return model.loss(params, to_device(batch, model.device), mesh=mesh)
 
     return eval_step

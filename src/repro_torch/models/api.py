@@ -62,6 +62,7 @@ from .common import (
     embed_init,
     f32_accumulation,
     make_norm,
+    MetaGenerator,
     mm,
     rmsnorm,
     rope_angles,
@@ -88,6 +89,8 @@ class Model:
 
 
 def _generator(seed_or_gen, device: torch.device) -> torch.Generator:
+    if device.type == "meta":
+        return MetaGenerator()
     if isinstance(seed_or_gen, torch.Generator):
         if seed_or_gen.device.type != device.type:
             raise ValueError(f"a {seed_or_gen.device} generator cannot draw "
@@ -750,11 +753,13 @@ def value_and_grad(model: Model, params, batch, mesh=None, remat: bool = True):
 
 # ===========================================================================
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    """The family's :class:`Model` on ``device`` (None: CUDA), dispatched
-    in the reference's order: xLSTM, SSM / hybrid, encoder-decoder, then
-    the decoder (dense, MoE, VLM, MLA)."""
+    """The family's :class:`Model` on ``device`` (None: CUDA; ``"meta"``:
+    shapes and dtypes only, for the dry run), dispatched in the
+    reference's order: xLSTM, SSM / hybrid, encoder-decoder, then the
+    decoder (dense, MoE, VLM, MLA)."""
     cfg.validate()
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     if cfg.xlstm is not None:
         fns = (_init_xlstm, _xlstm_loss, _xlstm_prefill, _xlstm_decode,
                _xlstm_init_cache)

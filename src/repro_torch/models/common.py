@@ -84,17 +84,30 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # initialisation
 # ---------------------------------------------------------------------------
+class MetaGenerator:
+    """A generator's stand-in on the meta device: a model initialised from
+    it has its parameters' shapes and dtypes and no values (the dry run)."""
+
+    device = torch.device("meta")
+
+
+def _normal(gen, shape) -> torch.Tensor:
+    """f32 N(0, 1) draws of ``shape`` on the generator's device."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
 def dense_init(gen: torch.Generator, shape, dtype, fan_in: int | None = None):
     """N(0, 1/fan_in) weights drawn in f32 on the generator's device."""
     fan = fan_in if fan_in is not None else shape[-2] if len(shape) >= 2 else shape[-1]
     scale = 1.0 / np.sqrt(max(fan, 1))
-    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return w.mul_(scale).to(dtype)
+    return _normal(gen, shape).mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
-    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return w.mul_(0.02).to(dtype)
+    return _normal(gen, shape).mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

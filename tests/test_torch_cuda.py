@@ -1559,3 +1559,50 @@ def test_checkpoint_restores_onto_card(cuda_device, tmp_path):
     for k in tree:
         assert back[k].device.type == "cuda" and back[k].dtype == tree[k].dtype
         assert torch.equal(back[k], tree[k])
+
+
+@pytest.mark.parametrize("rows,seq,branch", [
+    (8, 1, "moe_weight_stationary"), (4, 512, "moe_token_sharded")])
+def test_meshed_moe_on_card_equals_cpu(cuda_device, rows, seq, branch):
+    """One full-width granite MoE layer under a logical (2, 4) mesh, on the
+    card and on the CPU: each branch (8 tokens: weight-stationary; 2,048:
+    token-sharded) the same within the bf16 tolerance, twice the same
+    bits on the card."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.shard_ctx import recording_collectives
+
+    cfg = get_config("granite_moe_3b_a800m")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = {k: v[0] for k, v in init_moe(gen, cfg, 1, torch.bfloat16).items()}
+    x = torch.randn((rows, seq, cfg.d_model), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    mesh = make_test_mesh(devices=[cuda_device] * 8)
+    with recording_collectives() as log:
+        y1, _ = moe_forward(p, x, cfg, mesh=mesh)
+    y2, _ = moe_forward(p, x, cfg, mesh=mesh)
+    assert [r.what for r in log] == [branch]
+    assert torch.equal(y1, y2)
+    yc, _ = moe_forward({k: v.cpu() for k, v in p.items()}, x.cpu(), cfg,
+                        mesh=make_test_mesh(devices=["cpu"] * 8))
+    gap = (y1.cpu().float() - yc.float()).abs().max() / yc.float().abs().max()
+    assert float(gap) <= MODEL_TOL["bfloat16"]
+
+
+def test_dry_run_argument_bytes_on_card(cuda_device):
+    """A cut decode cell on a (1, 1) mesh made real on the card takes the
+    dry run's argument bytes (within 1%)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import arg_bytes, build_cell, \
+        instantiate_cell
+
+    cell = build_cell("whisper_tiny", "decode_32k",
+                      make_test_mesh(devices=[cuda_device]), global_batch=8,
+                      seq_len=1024)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    real = instantiate_cell(cell, cuda_device, seed=0)
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated() - base
+    assert abs(got - arg_bytes(cell)) <= 0.01 * arg_bytes(cell)
+    logits, _ = real.step_fn(*real.args)
+    assert bool(torch.isfinite(logits.float()).all())

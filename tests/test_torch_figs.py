@@ -282,4 +282,4 @@ def test_suite_driver_runs_table1(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "table1_cost_model_torch.json").exists()
     assert [s for s, _ in bench_run.SUITES] == [
         "replay", "sweep", "table1", "fig5", "fig6", "fig7", "fig8", "fig9",
-        "fig10", "kernels", "integration"]
+        "fig10", "kernels", "integration", "roofline"]

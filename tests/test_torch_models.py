@@ -31,6 +31,7 @@ from repro.models.api import build_model as ref_build
 
 from repro_torch import configs
 from repro_torch.convert import cache_from_arrays, model_params_from_arrays
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import attention, common, mlp
 from repro_torch.models.api import build_model
 from repro_torch.models.shard_ctx import constrain, use_mesh
@@ -128,9 +129,14 @@ def test_configs_field_for_field(arch):
 
 
 def test_shard_ctx_identity_without_mesh_and_raises_with_one():
+    """The identity without a mesh and under one (a sharding constraint
+    leaves values unchanged); under a mesh the spec is computed, and a
+    mesh without axes refuses."""
     x = torch.ones(2, 3)
     assert constrain(x, ("dp", None)) is x
-    with use_mesh(object()), pytest.raises(NotImplementedError):
+    with use_mesh(make_test_mesh(devices=["cpu"] * 8)):
+        assert constrain(x, ("dp", None)) is x
+    with use_mesh(object()), pytest.raises(AttributeError):
         constrain(x, ("dp", None))
 
 
@@ -341,8 +347,10 @@ def test_moe_forward(arch):
     probs = jax.nn.softmax(jnp.asarray(x.reshape(-1, d)) @ jp["router"], -1)
     _, j_idx = jax.lax.top_k(probs, mo.top_k)
     assert np.array_equal(t_idx.numpy(), np.asarray(j_idx))
-    with pytest.raises(NotImplementedError):
-        mlp.moe_forward(tp, torch.from_numpy(x), cfg, mesh=object())
+    # a mesh whose model axis is 1 takes the reference's unsharded branch
+    one = make_test_mesh(devices=["cpu"])
+    assert torch.equal(mlp.moe_forward(tp, torch.from_numpy(x), cfg,
+                                       mesh=one)[0], got)
 
 
 def test_topk_ties_take_the_lower_index_first():

@@ -54,8 +54,9 @@ from repro.optim import compress as ref_compress
 from repro_torch import configs
 from repro_torch.convert import model_params_from_arrays, opt_state_from_arrays
 from repro_torch.launch import train
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import build_model, value_and_grad
-from repro_torch.models.common import tree_leaves
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, adamw8bit, compress
 
@@ -439,5 +440,14 @@ def test_eval_step_and_mesh_refused():
     b = {k: v[0] for k, v in _batches(1)[0].items()}
     assert float(train.make_eval_step(model)(params, b)) == float(
         model.loss(params, {k: torch.from_numpy(v) for k, v in b.items()}))
-    with pytest.raises(NotImplementedError, match="6d"):
-        train.make_train_step(model, adamw.AdamWConfig(), mesh=object())
+    # a dense model's step under a mesh: the same values (the hints are
+    # placement statements)
+    mesh = make_test_mesh(devices=["cpu"] * 8)
+    assert float(train.make_eval_step(model, mesh=mesh)(params, b)) == float(
+        train.make_eval_step(model)(params, b))
+    batch = _batches(1)[0]
+    runs = [train.make_train_step(model, adamw.AdamWConfig(), mesh=m)(
+        tree_map(lambda a: a.clone(), params), adamw.adamw_init(params),
+        batch) for m in (None, mesh)]
+    for a, c in zip(tree_leaves(runs[0][0]), tree_leaves(runs[1][0])):
+        assert torch.equal(a, c)
