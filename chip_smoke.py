@@ -47,7 +47,12 @@
    of the lookups' copy engine
    (``kernel_bench.lookup_cases``: narrow, vector, sliced, ragged;
    R 1, 3, 64, 65,537; int32, float32, float16), each twice, and an id
-   out of range that must raise;
+   out of range that must raise; then ``crm_update``'s mid path
+   (``kernel_bench.mid_crm_cases``: h 33-64 at 1, 3 and 17 lanes, row
+   strides h and h + 1) and the lookups' stream path
+   (``kernel_bench.stream_lookup_cases``: rows of 6 MB + 16 B, 7.9 MB and
+   24 MB at R 1, 2 and 18 in bf16, f32 and int16), each taking its path
+   and held bitwise twice;
 7. ``sweep_fig6``: the fig6 (64 alphas x 4 rhos) AKPC grid over
    ``netflix-table2`` as one ``SweepEngine`` call (one host schedule per
    rho, 64 scenario lanes each, one scan: the schedules are one cohort),
@@ -179,7 +184,7 @@
     steps), tokens/s, parameter bytes, peak memory and the expert cache's
     totals; every kernel of the path launched, the manager's CGM kernels
     and the ``packed_lookup`` gather of a step's cliques of layer 0's
-    ``wi`` (multi-MB rows, ``sliced``) bitwise against their plain
+    ``wi`` (7.9 MB clique rows, ``stream``) bitwise against their plain
     versions; staggered == solo on the card; and the six decoder-family
     configs at full width cut to 2 layers, the card's ``decode_step``
     logits and cache rows within ``CROSS_TOL`` of the port's CPU run on
@@ -194,7 +199,7 @@
     routed experts top-6 and 2 shared, vocab 102,400) serves the same
     requests with the AKPC ``ExpertCacheManager`` (160 experts, 2 hosts,
     T_CG 24) on the MoE layer's routing, then gathers the last step's
-    cliques of that layer's ``wi`` (15.7 MB rows, ``sliced``): every
+    cliques of that layer's ``wi`` (78.6 MB clique rows, ``stream``): every
     kernel of the path launched, held bitwise against its plain version
     on the captured inputs and timed; xlstm-125m and whisper-tiny at
     their full configs, zamba2 at full width cut to 8 layers and the
@@ -1277,6 +1282,30 @@ def profile_phase(config: str, trace, make_policy, out_dir) -> dict:
     return out
 
 
+def new_path_checks(report: list, dev) -> None:
+    """``crm_update``'s mid path on ``kernel_bench.mid_crm_cases`` and both
+    lookups' stream path on ``kernel_bench.stream_lookup_cases`` (the
+    unpacked one on the same bytes as one item a row): each must take its
+    path and hold bitwise, twice, against its plain version."""
+    def held(name, label, kern, plain, fn, path):
+        held_equal(report, name, f"{path} {label}", kern, plain)
+        if fn.last_path != path:
+            raise AssertionError(f"{name} took the {fn.last_path} path at "
+                                 f"{label}, not {path}")
+
+    for label, H in kernel_bench.mid_crm_cases(dev):
+        held("crm_update", label, lambda: crm_update(H),
+             lambda: crm_update_plain(H), crm_update, "mid")
+    for label, table, ids in kernel_bench.stream_lookup_cases(dev):
+        items, iids = table.view(table.shape[0], -1), ids.view(-1, 1)
+        held("packed_lookup", label, lambda: packed_lookup(table, ids),
+             lambda: packed_lookup_plain(table, ids), packed_lookup,
+             "stream")
+        held("unpacked_lookup", label, lambda: unpacked_lookup(items, iids),
+             lambda: unpacked_lookup_plain(items, iids), unpacked_lookup,
+             "stream")
+
+
 def kernels_bench_phase(dev) -> tuple[list, dict]:
     """The kernel benchmark, the only path of ``unpacked_lookup``, with the
     launch counts of its run; then ragged lookups held bitwise against
@@ -1327,6 +1356,7 @@ def kernels_bench_phase(dev) -> tuple[list, dict]:
               for p in LOOKUP_PATHS} - covered
     if missed:
         raise AssertionError(f"lookup paths never checked: {sorted(missed)}")
+    new_path_checks(report, dev)
     items = torch.zeros((10, 4), dtype=torch.float32, device=dev)
     for bad in (-1, 10):
         ids = torch.tensor([[0, bad]], dtype=torch.int32, device=dev)
@@ -1634,9 +1664,15 @@ def lane_kernel_phase(report: list, captured: dict) -> dict:
     for name, label, args in cases:
         kern, plain, loop, lib = lane_calls(name, args)
         err = held_equal(report, name, f"laned {label}", kern, plain)
+        if (name == "crm_update" and label == "captured fig7 grid"
+                and crm_update.last_path != "mid"):
+            raise AssertionError(f"fig7's laned crm_update took the "
+                                 f"{crm_update.last_path} path, not mid")
         if not label.startswith("captured") and args[0].shape[0] != 17:
             continue
         records.setdefault(name, {})[label] = {
+            **({"path": crm_update.last_path} if name == "crm_update"
+               else {}),
             "shape": [list(a.shape) for a in args
                       if isinstance(a, torch.Tensor)],
             "lanes": int(args[0].shape[0]), "max_abs_err": err,
@@ -3046,9 +3082,9 @@ def serve_moe(cfg, seed: int, dev, report: list,
     if g["rows"].shape != (g["ids"].numel(), mgr.params.omega,
                            cfg.d_model * cfg.moe.d_ff_expert):
         raise AssertionError(f"{tag}: gathered {tuple(g['rows'].shape)}")
-    if packed_lookup.last_path != "sliced":
+    if packed_lookup.last_path != "stream":
         raise AssertionError(f"{tag}: the gather took the "
-                             f"{packed_lookup.last_path} path, not sliced")
+                             f"{packed_lookup.last_path} path, not stream")
     if not (np.isfinite(stats.akpc_total) and stats.akpc_total > 0):
         raise AssertionError(f"{tag}: AKPC total {stats.akpc_total}")
     line.update({

@@ -53,15 +53,20 @@ a memset of the output's bytes: the write floor every gather of these rows
 shares.
 
 :func:`lookup_cases` builds an input for every path of the lookups' copy
-engine (4- to 16-byte rows, 1 KB rows of a 1 MB table and 5 KB rows of a 15 MB
-one, 5 KB + 4 byte rows, a table and ids at an unaligned offset) at R 1, 3, 64 and 65,537 in int32,
-float32 and float16; :func:`check_lookup_case` holds both lookups on one
-against their plain versions.
+engine but ``stream`` (4- to 16-byte rows, 1 KB rows of a 1 MB table and
+5 KB rows of a 15 MB one, 5 KB + 4 byte rows, a table and ids at an
+unaligned offset) at R 1, 3, 64 and 65,537 in int32, float32 and
+float16; :func:`check_lookup_case` holds both lookups on one against
+their plain versions.
 
 :func:`lane_cases` builds laned inputs of the three CGM kernels (1, 2,
 17 and 3 lanes, each lane with its own hot count, omega, gamma and act
-count) and :func:`wide_row_cases` rows longer than one slice of the
-``sliced`` lookup (23.6 MB, and 16 bytes either side of 6 MB);
+count), :func:`mid_crm_cases` inputs of ``crm_update``'s mid path (32 < h
+<= 64: 1, 3 and 17 lanes, row strides h and h + 1, rows of ones, empty
+and equal rows), :func:`wide_row_cases` a table of ``sliced`` rows of
+6 MB less 16 bytes and :func:`stream_lookup_cases` rows of the lookup's
+``stream`` path (6 MB + 16 B, 7.9 MB, 23.6 MB and 24 MB at R 1, 2 and 18
+in bf16, f32 and int16);
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels on
 them.
 
@@ -264,14 +269,26 @@ def check_lookup_case(case: dict) -> list[dict]:
 LANE_SHAPES = ((1, 64, 128), (2, 64, 128), (17, 64, 128), (3, 1024, 2048))
 #: the window rows of a laned ``crm_update`` case
 LANE_ROWS = 4097
-#: wide rows for the ``sliced`` path: the expert cache's clique row (omega
-#: 5 experts of 3 x 1536 x 512 float16, 23.6 MB) and rows a 16-byte unit
-#: below and above one 6 MB slice, with the ids of each case (a repeat)
-WIDE_ROWS = (("2 rows of 23.6 MB", 5 * 3 * 1536 * 512 * 2, 4, (2, 0)),
-             ("3 rows of 23.6 MB, one repeated", 5 * 3 * 1536 * 512 * 2, 4,
-              (1, 3, 1)),
-             ("rows of 6 MB less 16 bytes", (6 << 20) - 16, 5, (4, 0, 4)),
-             ("rows of 6 MB and 16 bytes", (6 << 20) + 16, 5, (3, 3, 1)))
+#: a wide row of the ``sliced`` path: a 16-byte unit below one 6 MB slice
+#: (rows of a slice or more take ``stream``), with the ids (a repeat)
+WIDE_ROWS = (("rows of 6 MB less 16 bytes", (6 << 20) - 16, 5, (4, 0, 4)),)
+#: the ``stream`` lookup path: row bytes (a 16-byte unit past one 6 MB
+#: slice, granite-moe-3b-a800m's 7.9 MB clique row, the expert cache's
+#: 23.6 MB clique row of omega 5 experts of 3 x 1536 x 512, 24 MB),
+#: requests and dtypes, from a table of STREAM_C rows (R 18 repeats ids)
+STREAM_ROWS = (("6 MB + 16 B", (6 << 20) + 16),
+               ("7.9 MB", 5 * 1536 * 512 * 2),
+               ("23.6 MB", 5 * 3 * 1536 * 512 * 2), ("24 MB", 24 << 20))
+STREAM_REQUESTS = (1, 2, 18)
+STREAM_DTYPES = (torch.bfloat16, torch.float32, torch.int16)
+STREAM_C = 5
+#: crm_update's ``mid`` path (32 < h <= 64): hot widths, lanes and row
+#: strides (h, or h + 1 as the device CGM's buffer) at MID_ROWS rows: more
+#: than one row for each of the 8,448 warps of one lane's wide grid (so
+#: every lane count takes the path), not a multiple of a block's 256
+MID_HS = (33, 48, 60, 63, 64)
+MID_LANES = (1, 3, 17)
+MID_ROWS = 17_153
 
 
 def lane_cases(device, seed: int = 0) -> list[tuple[str, str, tuple]]:
@@ -324,8 +341,8 @@ def lane_cases(device, seed: int = 0) -> list[tuple[str, str, tuple]]:
 
 def wide_row_cases(device, seed: int = 0):
     """(label, table, ids) of :data:`WIDE_ROWS` on ``device``: float16
-    tables of that many rows (every path ``sliced``: 16-byte-multiple rows,
-    more than one slice of table)."""
+    tables of that many rows (16-byte-multiple rows below one slice, more
+    than one slice of table: every path ``sliced``)."""
     rng = np.random.default_rng(seed)
     dev = torch.device(device)
     for label, row_bytes, C, ids in WIDE_ROWS:
@@ -335,6 +352,70 @@ def wide_row_cases(device, seed: int = 0):
                             dtype=torch.float32).to(torch.float16)
         yield label, table.view(C, 1, row_bytes // 2), torch.tensor(
             ids, dtype=torch.int32, device=dev)
+
+
+def stream_lookup_case(row: tuple, R: int, dtype, device,
+                       seed: int = 0) -> tuple:
+    """(label, table, ids) of one :data:`STREAM_ROWS` entry: a
+    (STREAM_C, 1, d) table of ``dtype`` with rows of that many bytes,
+    seeded on ``device``, and R ids, unsorted, repeated at R 18."""
+    label, row_bytes = row
+    dev = torch.device(device)
+    elem = torch.empty((), dtype=dtype).element_size()
+    d = row_bytes // elem
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(np.random.default_rng([seed, row_bytes, R]).integers(
+        1 << 30)))
+    if dtype.is_floating_point:
+        table = torch.randn((STREAM_C, 1, d), generator=g, device=dev,
+                            dtype=torch.float32).to(dtype)
+    else:
+        table = torch.randint(-(1 << 15), 1 << 15, (STREAM_C, 1, d),
+                              generator=g, device=dev, dtype=dtype)
+    ids = {1: [STREAM_C - 2], 2: [STREAM_C - 1, 0]}.get(R)
+    if ids is None:
+        ids = np.random.default_rng([seed, R]).integers(0, STREAM_C, R)
+    return (f"rows of {label}, {dtype}, R={R}", table,
+            torch.tensor(ids, dtype=torch.int32, device=dev))
+
+
+def stream_lookup_cases(device, seed: int = 0):
+    """Every :data:`STREAM_ROWS` entry at every :data:`STREAM_REQUESTS`
+    and :data:`STREAM_DTYPES` (:func:`stream_lookup_case`), one at a
+    time."""
+    for row in STREAM_ROWS:
+        for R in STREAM_REQUESTS:
+            for dtype in STREAM_DTYPES:
+                yield stream_lookup_case(row, R, dtype, device, seed)
+
+
+def mid_crm_case(lanes: int, h: int, extra: int, rows: int, device,
+                 seed: int = 0) -> tuple:
+    """(label, H) of ``crm_update``'s mid path: H the leading h columns of
+    a (lanes, rows, h + extra) buffer (2-D at one lane), up to 5 ones a
+    row, and in every lane rows of all ones, a run of empty rows and a run
+    of 70 equal rows (a popular bundle: lanes of one warp with one mask)."""
+    rng = np.random.default_rng([seed, lanes, h, extra, rows])
+    buf = np.zeros((lanes, rows, h + extra), np.float32)
+    for lane in range(lanes):
+        buf[lane, :, :h] = _incidence(rng, rows, h)[:, :h]
+        buf[lane, min(7, rows - 1), :h] = 1.0
+        buf[lane, rows - 1, :h] = 1.0
+        buf[lane, 100:164] = 0.0
+        buf[lane, 300:370, :h] = 0.0
+        buf[lane, 300:370, rng.choice(h, 4, replace=False)] = 1.0
+    t = torch.from_numpy(buf).to(torch.device(device))[:, :, :h]
+    return (f"L {lanes}, h {h} of {h + extra}, rows {rows}",
+            t[0] if lanes == 1 else t)
+
+
+def mid_crm_cases(device, seed: int = 0):
+    """:func:`mid_crm_case` at every :data:`MID_HS` x :data:`MID_LANES` x
+    row stride h and h + 1, at MID_ROWS rows."""
+    for h in MID_HS:
+        for lanes in MID_LANES:
+            for extra in (0, 1):
+                yield mid_crm_case(lanes, h, extra, MID_ROWS, device, seed)
 
 
 def scan_step_inputs(rng, S: int, L: int, starts, m: int, device) -> tuple:

@@ -17,9 +17,11 @@
 // are nearly all of zeros.
 //
 // Design: one pass over H, each row's pairs of nonzero columns counted
-// into the output.
-// * h > 32 (crm_wide_kernel): a warp a row.  Each lane loads 8 columns
-//   32 apart before it looks at any (coalesced 4-byte loads, 1 KB in
+// into the output.  The launch picks one of three paths by h and the rows
+// and reports it (0 narrow, 1 mid, 2 wide).
+// * h > 64, or 32 < h <= 64 on few rows (crm_wide_kernel): a warp a
+//   row.  Each lane loads 8 columns 32 apart before it looks at any
+//   (coalesced 4-byte loads, 1 KB in
 //   flight a warp, no alignment needed: at the device CGM the row stride
 //   is h + 1).  A ballot per 32 columns gives the nonzero columns, kept in
 //   a per-warp list of up to kCap entries; then the warp adds 1 for every
@@ -32,6 +34,33 @@
 //   would need every block to read all of H (or a compaction pass first),
 //   and the pairs are few: at most one atomic per 200 bytes read at
 //   catalog-10k.
+// * 32 < h <= 64 (crm_mid_kernel), when the wide grid (at most 8 blocks
+//   of 8 warps a SM) would give a warp more than one row: a lane a row,
+//   its columns one 64-bit mask.  A warp takes 32 rows at once and loads
+//   16 of them before it looks at any: lane l reads columns l and l + 32
+//   of each (coalesced 4-byte loads, 32 in flight a lane, any row stride,
+//   no division by it), and two ballots a row give the row's mask, which
+//   lane k keeps for row k.  Lanes whose rows are equal (the traces'
+//   popular bundles) count once, their lowest lane adding the
+//   multiplicity (__match_any_sync).  Each lane adds its row's pairs a < b
+//   (half the ordered pairs) into the block's (h, h) integer counts in
+//   shared memory (at most 16 KB); at the end each block adds its nonzero
+//   counts to both triangles of the zeroed output with float atomics.  The
+//   grid is at most 4 blocks a SM, all resident at once (a second wave
+//   would double the time), split evenly over the lanes.  It replaced the
+//   wide design at fig7's 17 lanes of h 60, where a warp a row loaded two
+//   useful words of eight and kept one 240-byte row in flight (times on
+//   an NVIDIA H100 80GB HBM3 at 700 W: PERF.md section 6).  In
+//   development runs on that card, thread-block clusters that summed
+//   their counts in distributed shared memory before one flush a cluster
+//   ran slower than more blocks with a flush each, as did fewer, larger
+//   blocks.  On few rows (the expert cache's one lane of 192) the wide
+//   design's one load round is a shorter chain than this design's two
+//   rounds, two block barriers and flush: there it takes half the time.
+//   The two cross between one and two rows a warp of the wide grid at 17
+//   lanes of h 60 and below one row a warp at one lane of h 40 (on an
+//   NVIDIA H100 80GB HBM3 at 700 W, src/repro_torch/bench/kernel_ab.py),
+//   so the rule takes one.
 // * h <= 32 (crm_narrow_kernel): a lane a row (a warp a row would leave
 //   26 of 32 lanes idle at the host CGM's h 6).  A warp reads 32 to 1,024
 //   consecutive rows (about 1,000 entries) with coalesced loads, 32
@@ -61,9 +90,15 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 8;       // 32-column words a lane loads at once
 constexpr int kCap = 64;         // nonzeros of a row kept as a list
 constexpr int kNarrow = 32;      // h up to which a lane takes a row
+constexpr int kMid = 64;         // h up to which a lane's row is one mask
+constexpr int kBatch = 16;       // rows a warp loads at once (mid)
+constexpr int kMidPerSm = 4;     // mid blocks resident on a SM
 constexpr int kLoads = 16;       // loads in flight a lane (narrow)
 constexpr int kSMs = 132;        // an H100 SXM
 constexpr unsigned kAll = 0xffffffffu;
+
+// the paths, as crm_update_lanes_launch reports them
+enum Path { kNarrowPath = 0, kMidPath = 1, kWidePath = 2 };
 
 // Rows a lane takes at once at h <= 32: about 1,000 entries a warp.
 __host__ __device__ inline int rows_per_lane(int h) {
@@ -122,6 +157,67 @@ crm_narrow_kernel(const float* __restrict__ H, float* __restrict__ out,
   __syncthreads();
   for (int e = threadIdx.x; e < h * h; e += kThreads)
     if (cnt[e] != 0) atomicAdd(out + e, static_cast<float>(cnt[e]));
+}
+
+// Dynamic shared memory: the block's (h, h) counts, of which the pairs
+// a < b are used; they go to the zeroed output once at the end, both
+// triangles.
+__global__ void __launch_bounds__(kThreads, kMidPerSm)
+crm_mid_kernel(const float* __restrict__ H, float* __restrict__ out,
+               int rows, int h, int ld, long long lane_stride) {
+  extern __shared__ int cnt[];
+  H += blockIdx.y * lane_stride;
+  out += static_cast<size_t>(blockIdx.y) * h * h;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool upper = lane + 32 < h;               // column lane + 32 exists
+  for (int e = threadIdx.x; e < h * h; e += kThreads) cnt[e] = 0;
+  __syncthreads();
+  for (int base = (blockIdx.x * kWarps + warp) * 32; base < rows;
+       base += gridDim.x * kWarps * 32) {
+    unsigned long long mine = 0ull;             // the mask of row base + lane
+#pragma unroll
+    for (int k0 = 0; k0 < 32; k0 += kBatch) {
+      float lo[kBatch], hi[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int r = base + k0 + k;
+        const float* row = H + static_cast<size_t>(r) * ld;
+        lo[k] = r < rows ? row[lane] : 0.0f;
+        hi[k] = r < rows && upper ? row[lane + 32] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const unsigned long long m =
+            __ballot_sync(kAll, lo[k] != 0.0f) |
+            static_cast<unsigned long long>(
+                __ballot_sync(kAll, hi[k] != 0.0f)) << 32;
+        if (lane == k0 + k) mine = m;
+      }
+    }
+    // lanes holding equal rows count them once, their lowest lane adding
+    // the multiplicity
+    const unsigned peers = __match_any_sync(kAll, mine);
+    if (__popcll(mine) > 1 && (peers & ((1u << lane) - 1u)) == 0u) {
+      const int w = __popc(peers);
+      for (unsigned long long ra = mine; ra;) {
+        const int a = __ffsll(ra) - 1;
+        ra &= ra - 1ull;
+        for (unsigned long long rb = ra; rb; rb &= rb - 1ull)
+          atomicAdd(&cnt[a * h + __ffsll(rb) - 1], w);
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < h * h; e += kThreads) {
+    const int a = e / h;
+    const int b = e - a * h;
+    if (a < b && cnt[e] != 0) {
+      const float v = static_cast<float>(cnt[e]);
+      atomicAdd(out + e, v);
+      atomicAdd(out + b * h + a, v);
+    }
+  }
 }
 
 // Dynamic shared memory: per warp kCap columns and one ballot mask per 32
@@ -189,21 +285,37 @@ crm_wide_kernel(const float* __restrict__ H, float* __restrict__ out,
 // H: lanes x (rows, ld) float32 with the first h columns used, lane l at
 // H + l lane_stride; out: lanes x (h, h) float32, contiguous, zeroed here.
 // The lanes ride the grid's y axis: each lane gets blocks in proportion to
-// its rows, the whole grid at most 8 blocks a SM (as one unlaned call).
+// its rows, the whole grid at most 8 blocks a SM (4 on the mid path; as
+// one unlaned call).  Writes the path it takes to *path (0 narrow, 1 mid,
+// 2 wide; -1 when h or lanes is 0).
 extern "C" int crm_update_lanes_launch(const float* H, float* out, int lanes,
                                        int rows, int h, int ld,
-                                       long long lane_stride,
+                                       long long lane_stride, int* path,
                                        cudaStream_t stream) {
+  *path = -1;
   if (h <= 0 || lanes <= 0) return static_cast<int>(cudaGetLastError());
+  const int most = max(1, 8 * kSMs / lanes);      // blocks a lane
+  // the wide design while its grid gives a warp at most one row; the mid
+  // design when its warps would walk more
+  *path = h <= kNarrow ? kNarrowPath
+          : (h <= kMid && rows > kWarps * most ? kMidPath : kWidePath);
   const cudaError_t zeroed = cudaMemsetAsync(
       out, 0, static_cast<size_t>(lanes) * h * h * sizeof(float), stream);
   if (zeroed != cudaSuccess || rows <= 0) return static_cast<int>(zeroed);
-  const int most = max(1, 8 * kSMs / lanes);      // blocks a lane
-  if (h <= kNarrow) {
+  const size_t smem_counts = static_cast<size_t>(h) * h * sizeof(int);
+  if (*path == kNarrowPath) {
     const int block_rows = kThreads * rows_per_lane(h);
     const int blocks = min((rows + block_rows - 1) / block_rows, most);
-    const size_t smem = (h * h + block_rows) * sizeof(int);
+    const size_t smem = smem_counts + block_rows * sizeof(int);
     crm_narrow_kernel<<<dim3(blocks, lanes), kThreads, smem, stream>>>(
+        H, out, rows, h, ld, lane_stride);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (*path == kMidPath) {
+    // all blocks resident at once: a second wave would double the time
+    const int blocks = min((rows + kThreads - 1) / kThreads,
+                           max(1, kMidPerSm * kSMs / lanes));
+    crm_mid_kernel<<<dim3(blocks, lanes), kThreads, smem_counts, stream>>>(
         H, out, rows, h, ld, lane_stride);
     return static_cast<int>(cudaGetLastError());
   }

@@ -19,7 +19,7 @@
 // table plus a 335 MB output, 0.116 ms at 3.35 TB/s, as long as the
 // table's rows are read from device memory once and then from L2.
 //
-// Design: the dispatch (route()) picks one of four copy paths by row size,
+// Design: the dispatch (route()) picks one of five copy paths by row size,
 // alignment and table size; none divides per copy unit.
 //  * narrow (rows of 4, 8, 12 or 16 bytes, ids and output 16-byte
 //    aligned): a thread takes four consecutive requests, brings their ids
@@ -27,28 +27,47 @@
 //    them with row_bytes / 4 16-byte stores; the last rows % 4 requests
 //    take a lane each.
 //  * wide (rows of a 16-byte multiple above 16 bytes, table and output
-//    16-byte aligned): the table is read with an L2 evict_last policy and
-//    the output written past it with streaming stores, so that the stores
-//    do not push the table out of the 50 MB L2.  A table of at most one
-//    6 MB slice takes `vector`: a warp a 2 KB piece of a row, 16-byte
-//    loads (ld.global.L2::cache_hint) four a lane in flight, then
-//    streaming stores (st.global.cs).  A larger one takes `sliced`: the
-//    table walked in 6 MB slices by a grid resident at once (a warp takes
-//    32 requests, copies those in the slice), so that a row the ids repeat
-//    is read from device memory about once even when the table does not
-//    fit L2.  A warp copies whole rows while the requests give every warp
-//    of the grid a group; when they are too few for that and the rows are
-//    long (above 64 KB: the expert cache's 23.6 MB clique rows, 2 a step),
-//    each row is cut into pieces of 2 KB multiples and a warp takes a
-//    (group, piece) pair, so that two rows still spread over the whole
-//    grid.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
-//    6): two 23.6 MB rows in 0.0552 ms on the card alone, 51% of the byte
-//    bound, where a warp a row took 10.4 ms.  The TPU's one DMA a row has
-//    no form here: a ring of shared-memory stages filled by one
-//    cp.async.bulk a row measured slower than both on the H100.
+//    16-byte aligned) below one 6 MB slice a row: the table is read with
+//    an L2 evict_last policy and the output written past it with
+//    streaming stores, so that the stores do not push the table out of
+//    the 50 MB L2.  A table of at most one 6 MB slice takes `vector`: a
+//    warp a 2 KB piece of a row, 16-byte loads
+//    (ld.global.L2::cache_hint) four a lane in flight, then streaming
+//    stores (st.global.cs).  A larger one takes `sliced`: the table walked
+//    in 6 MB slices by a grid resident at once (a warp takes 32 requests,
+//    copies those in the slice), so that a row the ids repeat is read from
+//    device memory about once even when the table does not fit L2.  A
+//    warp copies whole rows while the requests give every warp of the grid
+//    a group; when they are too few for that and the rows are long (above
+//    64 KB), each row is cut into pieces of 2 KB multiples and a warp
+//    takes a (group, piece) pair, so that a few rows still spread over the
+//    whole grid.
+//  * stream (rows of a 16-byte multiple of at least one 6 MB slice, the
+//    same alignment; the expert gathers' 7.9 to 78.6 MB clique rows): such
+//    a row cannot stay in L2 from one request to the next, so the gather
+//    is one read of each requested row and one write, and the design is a
+//    plain copy at the memory's rate.  Each row is cut into 48 KB pieces,
+//    handed to the blocks of a grid resident at once (one block a SM)
+//    round robin, so the grid walks the output front to back together and
+//    two rows still keep every SM busy.  A block is a ring of 4 stages of
+//    shared memory driven by one thread: a bulk copy (cp.async.bulk, the
+//    tensor memory accelerator) brings a piece in, completing on the
+//    stage's mbarrier, and a bulk copy writes it out; 4 pieces, 192 KB, in
+//    flight a SM without a register or an instruction a 16-byte unit.  No
+//    slice walk: `sliced` made every warp take one id load and one ballot
+//    for each of the table's slices (69 at deepseek-v2's expert table, 18
+//    of them requested), held 4 units a lane in flight, and read 1.4 GB
+//    through the 50 MB L2 under evict_last (times on an NVIDIA H100 80GB
+//    HBM3 at 700 W: PERF.md section 6).  In development runs on that card,
+//    register copies (8 or 16 units a thread, shares a block or a warp,
+//    grid-stride orders, evict-first or streaming loads) all ran slower
+//    than this ring on deepseek-v2's gather, as did the ring with each
+//    block taking one contiguous share or loading under an L2 evict_first
+//    policy; rings of 16 to 96 KB stages traded the large gather against
+//    the small ones.  The TPU's one DMA a row has its closest form here.
 //  * ragged (any other size or alignment): a group of lanes a row, sized to
 //    the row up to a warp, in the widest unit that divides the row size and
-//    both buffers' alignment, with the same cache hints.
+//    both buffers' alignment, with the same cache hints as wide.
 // Every path moves bytes only, so each equals the plain PyTorch gather bit
 // for bit.  The ids are NOT range-checked here: the caller checks them
 // against [0, C) (on the host where they come from the host), since a
@@ -66,11 +85,15 @@ constexpr int kBlocksPerSm = 16;
 // takes at a time and the table bytes a slice of the sliced form
 constexpr int kUnroll = 4;
 constexpr int kGroup = 32;
+// the stream design: bulk copies in flight a block, and their bytes (one
+// block a SM: 192 KB of shared memory)
+constexpr int kStages = 4;
+constexpr int kStageBytes = 48 << 10;
 constexpr long long kSliceBytes = 6LL << 20;
 constexpr int kMaxDevices = 64;
 
 // the copy paths, as lookup_rows_launch reports them
-enum Path { kNarrow = 0, kVector = 1, kSliced = 2, kRagged = 3 };
+enum Path { kNarrow = 0, kVector = 1, kSliced = 2, kRagged = 3, kStream = 4 };
 
 // ---- cache hints ----------------------------------------------------------
 
@@ -237,7 +260,7 @@ gather_wide_vector(const uint4* __restrict__ table,
 // (a work item): their ids in one load, a ballot of those in the slice,
 // then one copy of the piece each.  With pieces == 1 a piece is the whole
 // row.  Unit offsets past 2^31 stay in 64-bit pointers: a piece's own
-// count fits an int (the launch bounds it).
+// count fits an int (a row is below one slice: route()).
 __global__ void __launch_bounds__(kThreads)
 gather_wide_sliced(const uint4* __restrict__ table,
                    const int* __restrict__ ids, uint4* __restrict__ out,
@@ -273,6 +296,93 @@ gather_wide_sliced(const uint4* __restrict__ table,
   }
 }
 
+// ---- rows of a slice or more: a ring of bulk copies -----------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// one stage of the ring: its mbarrier counts the bytes of its bulk load
+__device__ __forceinline__ void stage_load(unsigned dst, const void* src,
+                                           unsigned bytes, unsigned bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void stage_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void stage_store(void* dst, unsigned src,
+                                            unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Each row cut into pieces of kStageBytes (the last one shorter, a 16-byte
+// multiple); piece j of the rows' pieces goes to block j mod gridDim.x, so
+// that the grid walks the output front to back together.  One thread a
+// block keeps kStages bulk loads (global -> shared, completing on the
+// stage's mbarrier) in flight and writes each piece back with a bulk store
+// (shared -> global) as it lands; a stage is loaded again once the store
+// that read it is done (wait_group.read).
+__global__ void __launch_bounds__(32)
+gather_rows_stream(const char* __restrict__ table,
+                   const int* __restrict__ ids, char* __restrict__ out,
+                   long long row_bytes, long long rows) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) unsigned long long bars[kStages];
+  if (threadIdx.x != 0) return;
+  for (int s = 0; s < kStages; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_addr(&bars[s])) : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  const long long pieces = (row_bytes + kStageBytes - 1) / kStageBytes;
+  const long long count = rows * pieces;
+  long long next = blockIdx.x;                    // the next piece to load
+  long long dst[kStages];                         // each stage's output offset
+  unsigned bytes[kStages];
+  auto load = [&](int s) {
+    const long long r = next / pieces;
+    const long long off = (next - r * pieces) * kStageBytes;
+    const long long left = row_bytes - off;
+    dst[s] = r * row_bytes + off;
+    bytes[s] = static_cast<unsigned>(left < kStageBytes ? left : kStageBytes);
+    stage_load(smem_addr(ring + s * kStageBytes),
+               table + static_cast<long long>(ids[r]) * row_bytes + off,
+               bytes[s], smem_addr(&bars[s]));
+    next += gridDim.x;
+  };
+  int loaded = 0;
+  for (; loaded < kStages && next < count; ++loaded) load(loaded);
+  for (int d = 0; d < loaded; ++d) {
+    const int s = d % kStages;
+    stage_wait(smem_addr(&bars[s]), (d / kStages) & 1);
+    stage_store(out + dst[s], smem_addr(ring + s * kStageBytes), bytes[s]);
+    // refill the stage whose store went out one piece ago
+    if (d >= 1 && next < count) {
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      load((d - 1) % kStages);
+      ++loaded;
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
 // ---- ragged rows: a group of lanes a row -----------------------------------
 
 template <typename U>
@@ -302,6 +412,7 @@ gather_ragged(const U* __restrict__ table, const int* __restrict__ ids,
 struct Device {
   int sms = 0;            // streaming multiprocessors
   int sliced_per_sm = 0;  // gather_wide_sliced blocks resident on one
+  int stream_per_sm = 0;  // gather_rows_stream blocks resident on one
 };
 
 cudaError_t current_device(Device** info) {
@@ -317,6 +428,14 @@ cudaError_t current_device(Device** info) {
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &d.sliced_per_sm, gather_wide_sliced, kThreads, 0);
+    if (e != cudaSuccess) return e;
+    constexpr int kRing = kStages * kStageBytes;
+    e = cudaFuncSetAttribute(gather_rows_stream,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kRing);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &d.stream_per_sm, gather_rows_stream, 32, kRing);
     if (e != cudaSuccess) return e;
     d.sms = sms;
   }
@@ -341,6 +460,7 @@ Path route(const void* table, long long table_rows, const int* ids,
     return kNarrow;
   }
   if (row_bytes % 16 == 0 && aligned(table, 16) && aligned(out, 16)) {
+    if (row_bytes >= kSliceBytes) return kStream;
     return table_rows * row_bytes > kSliceBytes ? kSliced : kVector;
   }
   return kRagged;
@@ -361,17 +481,14 @@ int launch_ragged(const Device& dev, const void* table, const int* ids,
 }
 
 // the sliced vector form on a grid that is resident at once, so that all
-// warps walk the slices together; rows cut into pieces when the request
-// groups leave warps idle and a row is long (a piece never more than 2^30
-// units, so its count fits an int)
+// warps walk the slices together; rows (below one slice: route()) cut into
+// pieces when the request groups leave warps idle and a row is long
 int launch_sliced(const Device& dev, const void* table, long long table_rows,
                   const int* ids, void* out, long long rows,
                   long long row_bytes, cudaStream_t stream) {
   constexpr long long kPieceUnits = 32 * kUnroll;   // 2 KB
   constexpr long long kSplitUnits = 4096;           // rows above 64 KB
-  constexpr long long kMaxPieceUnits = 1LL << 30;
   long long slice_rows = kSliceBytes / row_bytes;
-  if (slice_rows < 1) slice_rows = 1;
   if (slice_rows > table_rows) slice_rows = table_rows;
   const long long slices = (table_rows + slice_rows - 1) / slice_rows;
   const long long row_units = row_bytes / 16;
@@ -385,7 +502,6 @@ int launch_sliced(const Device& dev, const void* table, long long table_rows,
     pieces = want < most_pieces ? want : most_pieces;
   }
   long long piece_units = (row_units + pieces - 1) / pieces;
-  if (piece_units > kMaxPieceUnits) piece_units = kMaxPieceUnits;
   if (pieces > 1 || piece_units < row_units) {
     piece_units = (piece_units + kPieceUnits - 1) / kPieceUnits * kPieceUnits;
     pieces = (row_units + piece_units - 1) / piece_units;
@@ -399,12 +515,26 @@ int launch_sliced(const Device& dev, const void* table, long long table_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the stream form on a grid that is resident at once (one block a SM), at
+// most one block a piece
+int launch_stream(const Device& dev, const void* table, const int* ids,
+                  void* out, long long rows, long long row_bytes,
+                  cudaStream_t stream) {
+  const long long pieces = (row_bytes + kStageBytes - 1) / kStageBytes;
+  const long long most = static_cast<long long>(dev.sms) * dev.stream_per_sm;
+  const long long blocks = rows * pieces < most ? rows * pieces : most;
+  gather_rows_stream<<<static_cast<int>(blocks), 32, kStages * kStageBytes,
+                       stream>>>(static_cast<const char*>(table), ids,
+                                 static_cast<char*>(out), row_bytes, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // table (table_rows, row_bytes) of any element type, ids (rows,) int32 in
 // [0, table_rows), out (rows, row_bytes).  Writes the copy path it takes
-// to *path (0 narrow, 1 vector, 2 sliced, 3 ragged; -1 when there is
-// nothing to copy) and returns the launch's CUDA error code.
+// to *path (0 narrow, 1 vector, 2 sliced, 3 ragged, 4 stream; -1 when
+// there is nothing to copy) and returns the launch's CUDA error code.
 extern "C" int lookup_rows_launch(const void* table, long long table_rows,
                                   const int* ids, void* out, long long rows,
                                   long long row_bytes, int* path,
@@ -429,6 +559,8 @@ extern "C" int lookup_rows_launch(const void* table, long long table_rows,
       }
       return static_cast<int>(cudaGetLastError());
     }
+    case kStream:
+      return launch_stream(*dev, table, ids, out, rows, row_bytes, stream);
     case kSliced:
       return launch_sliced(*dev, table, table_rows, ids, out, rows, row_bytes,
                            stream);

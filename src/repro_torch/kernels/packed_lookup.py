@@ -12,7 +12,7 @@ The port of ``repro.kernels.packed_lookup``:
 Both launch one row-copy engine (``csrc/packed_lookup.cu``,
 ``lookup_rows_launch``) for CUDA tensors, which picks a copy path by row
 size, alignment and table size and reports it (the wrapper's
-``last_path``), and run their plain versions for CPU tensors; all of them
+``last_path``, one of :data:`PATHS`), and run their plain versions for CPU tensors; all of them
 copy bytes, so they agree bit for bit.  Both wrappers check the ids before
 a gather, since the kernel does not.
 
@@ -38,9 +38,11 @@ _LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                 ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
 #: the engine's copy paths, by the code ``lookup_rows_launch`` reports:
-#: rows of 4-16 bytes, of a 16-byte multiple from a table of at most
-#: 6 MB or a larger one, and any other
-PATHS = ("narrow", "vector", "sliced", "ragged")
+#: rows of 4-16 bytes (``narrow``); of a 16-byte multiple below 6 MB from a
+#: table of at most 6 MB (``vector``) or a larger one (``sliced``); any
+#: other (``ragged``); of a 16-byte multiple of 6 MB or more (``stream``:
+#: the expert gathers' multi-MB clique rows, each read once)
+PATHS = ("narrow", "vector", "sliced", "ragged", "stream")
 
 
 def packed_lookup_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -652,16 +652,90 @@ def test_laned_cgm_kernels_equal_plain(cuda_device, case):
 
 @pytest.mark.parametrize("case", range(len(kernel_bench.WIDE_ROWS)))
 def test_sliced_lookup_on_multi_mb_rows(cuda_device, case):
-    """The ``sliced`` path on rows longer than a 6 MB slice (the expert
-    cache's 23.6 MB clique rows, two and three with a repeat) and a
-    16-byte unit either side of one slice: each row spread over the grid,
-    the plain gather's bits."""
+    """The ``sliced`` path on rows a 16-byte unit below a 6 MB slice (rows
+    of a slice or more take ``stream``) from a table of several slices,
+    with a repeated id: each row spread over the grid, the plain gather's
+    bits."""
     label, table, ids = list(kernel_bench.wide_row_cases(cuda_device))[case]
     want = packed_lookup_plain(table, ids)
     got = packed_lookup(table, ids)
     assert packed_lookup.last_path == "sliced"
     torch.cuda.synchronize()
     assert torch.equal(got, want), label
+
+
+def _graph_equals_eager(fn, want):
+    """``fn()`` captured in a CUDA graph (after a warm-up call on a side
+    stream) and replayed gives ``want``'s bits."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(got, want)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("lanes", kernel_bench.MID_LANES)
+@pytest.mark.parametrize("h", kernel_bench.MID_HS)
+def test_mid_crm_update_equals_plain(cuda_device, h, lanes, extra):
+    """``crm_update`` at 32 < h <= 64 (a lane a row, one 64-bit mask;
+    1, 3 and 17 lanes, row stride h and h + 1, rows of ones, empty and
+    equal rows, a row count off the block's 256) takes the ``mid`` path
+    and gives its plain version's bits twice, and the same bits from a
+    CUDA graph."""
+    label, H = kernel_bench.mid_crm_case(lanes, h, extra,
+                                         kernel_bench.MID_ROWS, cuda_device)
+    want = crm_update_plain(H)
+    n0 = crm_update.launches
+    got, again = crm_update(H), crm_update(H)
+    assert crm_update.last_path == "mid"
+    assert crm_update.launches == n0 + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want), label
+    assert _graph_equals_eager(lambda: crm_update(H), want), label
+
+
+@pytest.mark.parametrize("lanes,h,limit", [(1, 40, 8448), (17, 60, 496),
+                                            (3, 64, 2816)])
+def test_mid_width_few_rows_keep_wide_path(cuda_device, lanes, h, limit):
+    """At 32 < h <= 64, a window whose rows the wide grid covers with at
+    most one row a warp (192 rows, as the expert cache's 192 x 40, and up
+    to the limit of 8 warps x 1,056 // lanes blocks) keeps the ``wide``
+    path, bitwise; one row more takes ``mid``."""
+    for n, path in ((192, "wide"), (limit, "wide"), (limit + 1, "mid")):
+        label, H = kernel_bench.mid_crm_case(lanes, h, 1, n, cuda_device)
+        got = crm_update(H)
+        assert crm_update.last_path == path, label
+        torch.cuda.synchronize()
+        assert torch.equal(got, crm_update_plain(H)), label
+
+
+@pytest.mark.parametrize("dtype", kernel_bench.STREAM_DTYPES)
+@pytest.mark.parametrize("R", kernel_bench.STREAM_REQUESTS)
+@pytest.mark.parametrize("row", kernel_bench.STREAM_ROWS,
+                         ids=[r[0] for r in kernel_bench.STREAM_ROWS])
+def test_stream_lookup_equals_plain(cuda_device, row, R, dtype):
+    """``packed_lookup`` on rows of a 6 MB slice and more (6 MB + 16 B,
+    granite's 7.9 MB clique row, the expert cache's 23.6 MB one, 24 MB)
+    at R 1, 2 and 18 (unsorted,
+    repeated ids) in bf16, f32 and int16 takes the ``stream`` path and
+    gives the plain gather's bits twice, and the same bits from a CUDA
+    graph."""
+    label, table, ids = kernel_bench.stream_lookup_case(row, R, dtype,
+                                                        cuda_device)
+    want = packed_lookup_plain(table, ids)
+    got, again = packed_lookup(table, ids), packed_lookup(table, ids)
+    assert packed_lookup.last_path == "stream"
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want), label
+    assert _graph_equals_eager(
+        lambda: packed_lookup(table, ids, ids_checked=True), want), label
 
 
 def test_super_group_lanes_on_card_equal_serial_card_runs(cuda_device):
@@ -1382,7 +1456,7 @@ def test_moe_combine_repeats_bit_for_bit(cuda_device):
 
 def test_expert_gather_through_packed_lookup(cuda_device):
     """``packed_tables`` -> ``packed_lookup`` of layer 0's ``wi`` at
-    granite's expert width (multi-MB rows: ``sliced``) == the plain
+    granite's expert width (7.9 MB clique rows: ``stream``) == the plain
     gather, bit for bit."""
     rng = np.random.default_rng(4)
     mgr = ExpertCacheManager(n_experts=40, n_hosts=2, t_cg=24.0,
@@ -1397,7 +1471,7 @@ def test_expert_gather_through_packed_lookup(cuda_device):
     before = packed_lookup.launches
     out = example.expert_gather(mgr, params, np.arange(10))
     assert packed_lookup.launches == before + 1
-    assert packed_lookup.last_path == "sliced"
+    assert packed_lookup.last_path == "stream"
     assert torch.equal(out["rows"], packed_lookup_plain(out["table"],
                                                         out["ids"]))
     rows = wi[0].reshape(48, -1)
