@@ -1,0 +1,282 @@
+"""Frozen copy of ``src/repro/core/crm.py`` at commit 63887c5 (numpy only).
+
+Part of the benchmark's plain reference: it imports nothing of the
+measured package, so a later change to the program cannot move it.
+
+
+Normalised co-access correlation matrix (paper Alg. 2).
+
+For every request window ``W`` (the requests of the last ``T_CG`` period), the
+CDN builds a raw co-occurrence matrix ``CRM[i1, i2] = #requests containing
+both i1 and i2``, min-max normalises it and binarises at threshold ``theta``.
+
+To bound the cost of this, the paper limits the matrix to the top-x% hottest
+items *of the window* (§V.A).  ``top_frac`` is therefore taken over the
+window's accessed-item support by default; ``top_frac_of="catalog"`` keeps
+the historical fraction-of-n semantics for cost parity with earlier runs.
+Hot items are mapped into a compact index space first; items outside the hot
+set never receive CRM edges and therefore stay singleton cliques.
+
+TPU path: counting co-occurrences is a rank-B update ``CRM += H^T @ H`` with
+``H`` the one-hot request/item incidence matrix, i.e. a matmul, which is what
+``repro.kernels.crm_update`` implements on the MXU.  The numpy path
+accumulates the same counts from the window's item pairs directly (requests
+are short, so the pair list is ~d_max^2 per request — far smaller than the
+dense (B, h) incidence product) and is bit-identical to the matmul form.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+#: padded-row width above which the pairwise scatter would materialise more
+#: index pairs than the dense incidence product it replaces
+_SCATTER_MAX_WIDTH = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowCRM:
+    """CRM of one window restricted to that window's hot items."""
+
+    hot_items: np.ndarray       # (h,) int32 global item ids, sorted
+    raw: np.ndarray             # (h, h) int32 co-occurrence counts
+    norm: np.ndarray            # (h, h) float32 min-max normalised
+    binary: np.ndarray          # (h, h) bool   norm > theta
+
+    @property
+    def n_hot(self) -> int:
+        return int(self.hot_items.shape[0])
+
+    def edge_set(self) -> set[tuple[int, int]]:
+        """Binary edges as a set of (global_u, global_v), u < v."""
+        iu, iv = np.nonzero(np.triu(self.binary, k=1))
+        gu = self.hot_items[iu]
+        gv = self.hot_items[iv]
+        return {(int(a), int(b)) for a, b in zip(gu, gv)}
+
+    def embed(
+        self, n: int
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Embed the compact hot-space CRM into full ``(n, n)`` catalog
+        space: ``(hot_mask (n,), raw f32, norm f32, binary bool)``.
+
+        Zeros everywhere outside the hot set, so an Alg.-4 edge diff of
+        two full-space binaries equals the host's union-hot-space diff —
+        the static-shape carry layout of the device-resident CGM
+        (``core.cgm_jax``).  Raw counts stay exact in f32 (they are small
+        integers, bounded by the window request count).
+        """
+        hot = np.zeros(n, bool)
+        raw = np.zeros((n, n), np.float32)
+        norm = np.zeros((n, n), np.float32)
+        binary = np.zeros((n, n), bool)
+        if self.hot_items.size:
+            hi = np.asarray(self.hot_items)
+            ix = np.ix_(hi, hi)
+            hot[hi] = True
+            raw[ix] = self.raw.astype(np.float32)
+            norm[ix] = self.norm
+            binary[ix] = self.binary
+        return hot, raw, norm, binary
+
+    @classmethod
+    def from_full(cls, hot_mask, raw, norm, binary) -> "WindowCRM":
+        """Inverse of :meth:`embed`: compact full-space arrays back to the
+        hot index space (device carry -> host ``WindowCRM``)."""
+        hot = np.nonzero(np.asarray(hot_mask))[0].astype(np.int32)
+        ix = np.ix_(hot, hot)
+        return cls(
+            hot_items=hot,
+            raw=np.asarray(raw)[ix].astype(np.int64),
+            norm=np.asarray(norm)[ix].astype(np.float32),
+            binary=np.asarray(binary)[ix].astype(bool),
+        )
+
+    @classmethod
+    def from_compact(cls, p_idx, raw, norm, binary, *, n: int) -> "WindowCRM":
+        """Device compact carry -> host ``WindowCRM``.
+
+        ``p_idx`` is the padded (h,) hot->catalog index map (ascending
+        real ids first, pads = n); ``raw``/``norm``/``binary`` are the
+        (h, h) workspace matrices.  Trims the pad tail — the device
+        keeps pad rows/cols zeroed, so the leading (nh, nh) block IS the
+        host hot-space CRM (raw counts are exact f32 integers, restored
+        to int64 here).
+        """
+        p_idx = np.asarray(p_idx)
+        nh = int((p_idx < n).sum())
+        return cls(
+            hot_items=p_idx[:nh].astype(np.int32),
+            raw=np.asarray(raw)[:nh, :nh].astype(np.int64),
+            norm=np.asarray(norm)[:nh, :nh].astype(np.float32),
+            binary=np.asarray(binary)[:nh, :nh].astype(bool),
+        )
+
+
+def incidence_matrix(items: np.ndarray, n: int) -> np.ndarray:
+    """One-hot request/item incidence H (B, n) from padded item ids.
+
+    ``items``: (B, d_max) int32, padded with -1.
+    """
+    B = items.shape[0]
+    H = np.zeros((B, n), dtype=np.float32)
+    req_idx, col = np.nonzero(items >= 0)
+    H[req_idx, items[req_idx, col]] = 1.0
+    return H
+
+
+def cooccurrence_counts(items: np.ndarray, n: int) -> np.ndarray:
+    """Raw CRM(W): symmetric co-occurrence counts with zero diagonal.
+
+    Exactly Alg. 2 lines 1-4: for every request, every unordered item pair
+    increments both symmetric entries once.  Counts come from a unique-key
+    reduction over the window's (request-deduplicated) item pairs — the
+    sparse equivalent of ``H^T @ H`` with 0/1 incidence, identical output.
+    """
+    items = np.asarray(items)
+    crm = np.zeros((n, n), dtype=np.int64)
+    if items.ndim != 2 or 0 in items.shape:
+        return crm
+    B, d = items.shape
+    if d > _SCATTER_MAX_WIDTH or B * n * n <= (1 << 25):
+        # wide rows, or an index space so small the dense product is cheaper
+        # than sorting the window
+        H = incidence_matrix(items, n)
+        crm[...] = (H.T @ H).astype(np.int64)
+        np.fill_diagonal(crm, 0)
+        return crm
+    # incidence is 0/1: an item repeated inside one request counts once
+    s = np.sort(items, axis=1)
+    dup = s[:, 1:] == s[:, :-1]
+    if dup.any():
+        s[:, 1:][dup] = -1
+        s = np.sort(s, axis=1)          # re-pack valid ids into the tail
+    c = (s >= 0).sum(axis=1)            # distinct items per request
+    key_parts = []
+    for cc in np.unique(c):             # group rows by cardinality: the pair
+        if cc < 2:                      # grid is sum(c_r^2), not B * d^2
+            continue
+        rows = s[c == cc, d - cc:].astype(np.int64)
+        ii, jj = np.nonzero(~np.eye(cc, dtype=bool))
+        key_parts.append((rows[:, ii] * n + rows[:, jj]).ravel())
+    if key_parts:
+        keys = np.concatenate(key_parts)
+        if n * n <= (1 << 22):          # count in place: O(keys + n^2)
+            crm.reshape(-1)[:] = np.bincount(keys, minlength=n * n)
+        else:
+            uk, uc = np.unique(keys, return_counts=True)
+            crm.reshape(-1)[uk] = uc
+    return crm
+
+
+def minmax_normalise(crm: np.ndarray) -> np.ndarray:
+    """Min-max scaling to [0, 1] (Alg. 2 line 5)."""
+    lo = crm.min()
+    hi = crm.max()
+    if hi <= lo:
+        return np.zeros_like(crm, dtype=np.float32)
+    if lo == 0:                         # the common case: skip the subtract
+        return (crm / hi).astype(np.float32)
+    return ((crm - lo) / (hi - lo)).astype(np.float32)
+
+
+def hot_items_of_window(
+    items: np.ndarray, n: int, top_frac: float, top_frac_of: str = "window"
+) -> np.ndarray:
+    """ids of the ``top_frac`` most frequently accessed items of the window.
+
+    ``top_frac_of="window"`` (default, paper §V.A) takes the fraction over
+    the window's distinct accessed items, so a sparse window on a huge
+    catalog yields a proportionally small CRM.  ``"catalog"`` reproduces the
+    historical fraction-of-n hot-set size (every accessed item is hot
+    whenever the window support is below ``n * top_frac``).
+    """
+    if top_frac_of not in ("window", "catalog"):
+        raise ValueError(
+            f"top_frac_of must be 'window' or 'catalog', got {top_frac_of!r}"
+        )
+    flat = items[items >= 0]
+    counts = np.bincount(flat, minlength=n)
+    base = n if top_frac_of == "catalog" else int((counts > 0).sum())
+    n_hot = max(1, int(round(base * top_frac)))
+    order = np.argsort(-counts, kind="stable")
+    hot = order[:n_hot]
+    hot = hot[counts[hot] > 0]          # never include never-accessed items
+    return np.sort(hot).astype(np.int32)
+
+
+def build_window_crm(
+    items: np.ndarray,
+    n: int,
+    theta: float,
+    top_frac: float = 0.1,
+    crm_matmul=None,
+    top_frac_of: str = "window",
+) -> WindowCRM:
+    """Alg. 2 end to end for one window.
+
+    ``crm_matmul``: optional accelerated ``(H) -> H^T H`` implementation
+    (e.g. the Pallas kernel wrapper); defaults to the numpy pair scatter.
+    ``top_frac_of``: hot-set denominator, see :func:`hot_items_of_window`.
+    """
+    hot = hot_items_of_window(items, n, top_frac, top_frac_of)
+    h = hot.shape[0]
+    # remap window items into the compact hot index space; cold items -> -1
+    lut = np.full(n, -1, dtype=np.int32)
+    lut[hot] = np.arange(h, dtype=np.int32)
+    compact = np.where(items >= 0, lut[np.clip(items, 0, n - 1)], -1)
+    if crm_matmul is None:
+        raw = cooccurrence_counts(compact, h)
+    else:
+        H = incidence_matrix(compact, h)
+        raw = np.asarray(crm_matmul(H)).astype(np.int64)
+        np.fill_diagonal(raw, 0)
+    norm = minmax_normalise(raw)
+    binary = norm > theta
+    np.fill_diagonal(binary, False)
+    return WindowCRM(hot_items=hot, raw=raw, norm=norm, binary=binary)
+
+
+def edge_diff(
+    prev: WindowCRM | None, cur: WindowCRM
+) -> tuple[set[tuple[int, int]], set[tuple[int, int]]]:
+    """Delta-E between consecutive binary CRMs as Python sets (legacy form).
+
+    Returns (added_edges, removed_edges) in GLOBAL item ids.  The CGM hot
+    path uses :func:`edge_diff_arrays`; this set form remains for tests and
+    the scalar oracle.
+    """
+    cur_edges = cur.edge_set()
+    prev_edges = prev.edge_set() if prev is not None else set()
+    return cur_edges - prev_edges, prev_edges - cur_edges
+
+
+def edge_diff_arrays(
+    prev: WindowCRM | None, cur: WindowCRM
+) -> tuple[np.ndarray, np.ndarray]:
+    """Delta-E between consecutive binary CRMs as (e, 2) int64 arrays.
+
+    Boolean-matrix diff over the union hot index space (Alg. 4 input):
+    rows are (global_u, global_v) with u < v, lexicographically sorted —
+    the same order the scalar oracle iterates its edge sets in.
+    """
+    if prev is None:
+        iu, iv = np.nonzero(np.triu(cur.binary, k=1))
+        added = np.stack(
+            [cur.hot_items[iu], cur.hot_items[iv]], axis=1
+        ).astype(np.int64)
+        return added, np.zeros((0, 2), dtype=np.int64)
+    union = np.union1d(prev.hot_items, cur.hot_items)
+    U = union.shape[0]
+    P = np.zeros((U, U), dtype=bool)
+    C = np.zeros((U, U), dtype=bool)
+    pi = np.searchsorted(union, prev.hot_items)
+    ci = np.searchsorted(union, cur.hot_items)
+    P[np.ix_(pi, pi)] = prev.binary
+    C[np.ix_(ci, ci)] = cur.binary
+    au, av = np.nonzero(np.triu(C & ~P, k=1))
+    ru, rv = np.nonzero(np.triu(P & ~C, k=1))
+    added = np.stack([union[au], union[av]], axis=1).astype(np.int64)
+    removed = np.stack([union[ru], union[rv]], axis=1).astype(np.int64)
+    return added, removed
