@@ -454,8 +454,8 @@ RAGGED_D = (1, 3, 255, 256)
 RAGGED_DTYPES = (torch.int32, torch.float32, torch.float64)
 #: the lookups' copy paths every check run must reach
 LOOKUP_PATHS = ("narrow", "vector", "sliced", "ragged")
-#: the replay's named profiler spans (``core/cgm.py``)
-SPANS = ("cgm.", "replay.", "host.")
+#: the program's named profiler spans (``repro_torch.spans``)
+SPANS = ("cgm.", "replay.", "host.", "host_cgm.", "live.")
 #: the serve phase: requests an arrival slice, a dispatched chunk, the
 #: ring's depth (the reference serving bench's), the head streamed again
 #: with the plain versions, and the mid-flight snapshot's cut in that head

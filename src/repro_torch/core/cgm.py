@@ -55,6 +55,7 @@ from ..kernels import capture
 from ..kernels.clique_density import clique_pair_edges, clique_pair_edges_plain
 from ..kernels.crm_update import crm_update, crm_update_plain
 from ..kernels.merge_step import merge_density, merge_density_plain
+from ..spans import span
 from .cgm_schedule import (
     _F32_EXACT,
     build_cgm_schedule,
@@ -79,18 +80,24 @@ _INT_MAX = torch.iinfo(torch.int64).max
 _INT_MIN = torch.iinfo(torch.int64).min
 
 
-#: named spans for ``torch.profiler`` traces (cheap when no profiler runs)
-_span = torch.profiler.record_function
-
-
 def _count(stats: dict, key: str, k: int = 1) -> None:
     stats[key] = stats.get(key, 0) + k
 
 
 def _sync(stats: dict, kind: str, t: torch.Tensor):
-    """Read a device value on the host, counting the sync."""
+    """Read a device value on the host: one sync, counted as ``sync_<kind>``
+    and spanned as ``cgm.sync.<kind>``."""
     _count(stats, "sync_" + kind)
-    return t.item()
+    with span("cgm.sync." + kind):
+        return t.item()
+
+
+def _nonzero(stats: dict, kind: str, mask: torch.Tensor) -> torch.Tensor:
+    """Flat indices of a device mask's True entries; their count is read
+    on the host, one sync counted and spanned as :func:`_sync`'s."""
+    _count(stats, "sync_" + kind)
+    with span("cgm.sync." + kind):
+        return torch.nonzero(mask).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -285,8 +292,7 @@ def _adjust_partition(of, gsize, binary, W, hot_idx, lut, addM, remM,
 
     og_p = of[rem_map.clamp(0, n - 1)]               # group per prev slot
     remM = remM & (og_p[:, None] == og_p[None, :])
-    rem_f = torch.nonzero(remM.reshape(-1)).reshape(-1)
-    _count(stats, "sync_adjust")
+    rem_f = _nonzero(stats, "adjust", remM.reshape(-1))
     _count(stats, "edges_removed", rem_f.shape[0])
     for i in range(rem_f.shape[0]):
         fi = rem_f[i:i + 1]
@@ -314,8 +320,7 @@ def _adjust_partition(of, gsize, binary, W, hot_idx, lut, addM, remM,
 
     og_c = of[hot_idx.clamp(0, n - 1)]               # group per cur slot
     addM = addM & (og_c[:, None] != og_c[None, :])
-    add_f = torch.nonzero(addM.reshape(-1)).reshape(-1)
-    _count(stats, "sync_adjust")
+    add_f = _nonzero(stats, "adjust", addM.reshape(-1))
     _count(stats, "edges_added", add_f.shape[0])
     for i in range(add_f.shape[0]):
         fi = add_f[i:i + 1]
@@ -367,8 +372,7 @@ def _split_oversized(of, gsize, W, lut, cspec, stats, *, n, gcap):
     KW = gcap + 1
     triu_g = torch.triu(torch.ones((gcap, gcap), dtype=torch.bool,
                                    device=dev), diagonal=1)
-    os_idx = torch.nonzero(gsize > omega).reshape(-1)
-    _count(stats, "sync_split")
+    os_idx = _nonzero(stats, "split", gsize > omega)
     ml = _member_lists(of, n, gcap)
     of_key = torch.cat([of * KW, of.new_zeros(1)])   # (n+1,): dump slot n
     for i in range(os_idx.shape[0]):
@@ -570,7 +574,7 @@ def _cgm_boundary(carry, now, cspec, dt, item_sizes, stats, *, n, m, h,
     Then resets the window buffers and rolls the compact CRM + hot index
     map into the previous-window carry slots.
     """
-    with _span("cgm.window_crm"):
+    with span("cgm.window_crm"):
         hot_idx, valid_h, lut, raw, norm, binary = _window_crm_device(
             carry, cspec, n=n, h=h, wcap=wcap, use_kernels=use_kernels)
     W = norm.to(torch.float64)
@@ -597,20 +601,20 @@ def _cgm_boundary(carry, now, cspec, dt, item_sizes, stats, *, n, m, h,
     addM = binary & ~prev_in_cur & triu_h
     of = carry["of"]
     gsize = carry["cnt"][:n].to(_I64)
-    with _span("cgm.adjust"):
+    with span("cgm.adjust"):
         of, gsize = _adjust_partition(
             of, gsize, binary, W, hot_idx, lut, addM, remM, p_idx, cspec,
             stats, n=n, h=h, gcap=gcap)
     if enable_split:
-        with _span("cgm.split"):
+        with span("cgm.split"):
             of = _split_oversized(of, gsize, W, lut, cspec, stats, n=n,
                                   gcap=gcap)
     if enable_acm:
-        with _span("cgm.merge"):
+        with span("cgm.merge"):
             of = _approx_merge(
                 of, binary, hot_idx, valid_h, cspec, stats, n=n, h=h,
                 use_kernels=use_kernels, full_merge=full_merge)
-    with _span("cgm.install"):
+    with span("cgm.install"):
         E_new, a_new, cnt_new = _install_partition_device(
             carry, of, now, dt, n=n, seed_new=seed_new)
     out = dict(
@@ -887,7 +891,7 @@ def run_cgm_schedule(schedule, spec, statics, cspec, carry0, item_sizes, *,
     for b in range(schedule.nb):
         nreq = int(xs["nreq"][b])
         if xs["cg"][b]:
-            with _span("cgm.boundary"):
+            with span("cgm.boundary"):
                 carry = _cgm_boundary(
                     carry, float(xs["now"][b]), cspec, dt, sz, stats, n=n,
                     m=m, h=h, wcap=wcap, uses_sizes=uses_sizes,
@@ -899,7 +903,7 @@ def run_cgm_schedule(schedule, spec, statics, cspec, carry0, item_sizes, *,
             continue
         x = {"items": items[b], "servers": servers[b], "times": times[b],
              "nreq": nreq}
-        with _span("replay.step"):
+        with span("replay.step"):
             carry = _accumulate_window(carry, x, n=n)
             carry = _event_step(
                 carry, x, spec_d, kind=statics, charge=charge,

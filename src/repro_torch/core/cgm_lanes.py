@@ -38,7 +38,7 @@ from ..kernels import capture
 from ..kernels.clique_density import clique_pair_edges, clique_pair_edges_plain
 from ..kernels.crm_update import crm_update, crm_update_plain
 from ..kernels.merge_step import merge_density, merge_density_lanes_plain
-from .cgm import _accumulate_window, _count, _span, init_cgm_carry
+from .cgm import _accumulate_window, _count, init_cgm_carry
 from .cgm_schedule import _F32_EXACT
 from .replay import _bucket, _rate_hook, _transfer_hook, lane_spec_to_device
 
@@ -611,9 +611,8 @@ def _cgm_boundary(carry, now, cs, dt, item_sizes, stats, *, n, m, h, wcap,
                   uses_sizes, enable_split, enable_acm, seed_new,
                   use_kernels, gcap, full_merge):
     """One T_CG boundary in every lane: Alg. 2 -> 4 -> 3 -> install."""
-    with _span("cgm_lanes.window_crm"):
-        hot_idx, valid_h, lut, raw, norm, binary = _window_crm(
-            carry, cs, n=n, h=h, wcap=wcap, use_kernels=use_kernels)
+    hot_idx, valid_h, lut, raw, norm, binary = _window_crm(
+        carry, cs, n=n, h=h, wcap=wcap, use_kernels=use_kernels)
     W = norm.to(_F64)
     S = W.shape[0]
     dev = W.device
@@ -630,22 +629,18 @@ def _cgm_boundary(carry, now, cs, dt, item_sizes, stats, *, n, m, h, wcap,
     remM = pbin & ~cur_in_prev & triu_h
     addM = binary & ~prev_in_cur & triu_h
     gsize = carry["cnt"][:, :n].to(_I64)
-    with _span("cgm_lanes.adjust"):
-        of, gsize = _adjust_partition(
-            carry["of"], gsize, binary, W, hot_idx, lut, addM, remM, p_idx,
-            cs["omega"], stats, n=n, h=h, gcap=gcap)
+    of, gsize = _adjust_partition(
+        carry["of"], gsize, binary, W, hot_idx, lut, addM, remM, p_idx,
+        cs["omega"], stats, n=n, h=h, gcap=gcap)
     if enable_split:
-        with _span("cgm_lanes.split"):
-            of = _split_oversized(of, gsize, W, lut, cs["omega"], stats, n=n,
-                                  gcap=gcap)
+        of = _split_oversized(of, gsize, W, lut, cs["omega"], stats, n=n,
+                              gcap=gcap)
     if enable_acm:
-        with _span("cgm_lanes.merge"):
-            of = _approx_merge(of, binary, hot_idx, valid_h, cs, stats, n=n,
-                               h=h, use_kernels=use_kernels,
-                               full_merge=full_merge)
-    with _span("cgm_lanes.install"):
-        E_new, a_new, cnt_new = _install_partition(
-            carry, of, now, dt, n=n, seed_new=seed_new)
+        of = _approx_merge(of, binary, hot_idx, valid_h, cs, stats, n=n,
+                           h=h, use_kernels=use_kernels,
+                           full_merge=full_merge)
+    E_new, a_new, cnt_new = _install_partition(
+        carry, of, now, dt, n=n, seed_new=seed_new)
     out = dict(
         carry, E=E_new, anchor=a_new, of=of, cnt=cnt_new, wlen=0,
         wcnt=torch.zeros(n + 1, dtype=_I64, device=dev),
@@ -819,23 +814,21 @@ def run_cgm_lanes(schedule, spec, statics, cspec, carry0, item_sizes, *,
     for b in range(schedule.nb):
         nreq = int(xs["nreq"][b])
         if xs["cg"][b]:
-            with _span("cgm_lanes.boundary"):
-                carry = _cgm_boundary(
-                    carry, float(xs["now"][b]), cs, dt, sz, stats, n=n, m=m,
-                    h=h, wcap=wcap, uses_sizes=uses_sizes,
-                    enable_split=enable_split, enable_acm=enable_acm,
-                    seed_new=seed_new, use_kernels=use_kernels, gcap=gcap,
-                    full_merge=full_merge)
+            carry = _cgm_boundary(
+                carry, float(xs["now"][b]), cs, dt, sz, stats, n=n, m=m,
+                h=h, wcap=wcap, uses_sizes=uses_sizes,
+                enable_split=enable_split, enable_acm=enable_acm,
+                seed_new=seed_new, use_kernels=use_kernels, gcap=gcap,
+                full_merge=full_merge)
             ofs.append(carry["of"])
         if nreq == 0:
             continue
         x = {"items": items[b], "servers": servers[b], "times": times[b],
              "nreq": nreq}
-        with _span("cgm_lanes.step"):
-            carry = _accumulate_window(carry, x, n=n)
-            carry = _event_step(
-                carry, x, spec_d, kind=statics, charge=charge,
-                uses_sizes=uses_sizes, item_sizes=sz, dt_e=dt_e, n=n, m=m)
+        carry = _accumulate_window(carry, x, n=n)
+        carry = _event_step(
+            carry, x, spec_d, kind=statics, charge=charge,
+            uses_sizes=uses_sizes, item_sizes=sz, dt_e=dt_e, n=n, m=m)
     ofs = (torch.stack(ofs, 1) if ofs
            else torch.zeros((S, 0, n), dtype=_I64, device=dev))
     return carry, ofs, stats

@@ -25,6 +25,7 @@ import itertools
 
 import numpy as np
 
+from ..spans import span
 from .crm import WindowCRM, edge_diff_arrays
 
 #: host clique-generation call counter
@@ -506,17 +507,21 @@ def generate_cliques(
     view = _CrmView(crm, n)
     if prev is None:
         prev = CliquePartition.singletons(n)
-    added, removed = edge_diff_arrays(prev_crm, crm)
-    groups = adjust_previous_cliques(prev, added, removed, view, omega)
+    with span("host_cgm.adjust"):
+        added, removed = edge_diff_arrays(prev_crm, crm)
+        groups = adjust_previous_cliques(prev, added, removed, view, omega)
     if enable_split:
         out: list[tuple[int, ...]] = []
-        for g in groups:
-            if len(g) <= omega:
-                out.append(g)
-            else:
-                out.extend(split_oversized(g, omega, view))
+        with span("host_cgm.split"):
+            for g in groups:
+                if len(g) <= omega:
+                    out.append(g)
+                else:
+                    out.extend(split_oversized(g, omega, view))
     else:
         out = list(groups)
     if enable_approx_merge:
-        out = approximate_merge(out, view, omega, gamma, pair_edges=pair_edges)
+        with span("host_cgm.merge"):
+            out = approximate_merge(out, view, omega, gamma,
+                                    pair_edges=pair_edges)
     return CliquePartition.from_cliques(n, out)

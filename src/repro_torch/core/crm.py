@@ -16,6 +16,8 @@ import dataclasses
 
 import numpy as np
 
+from ..spans import span
+
 #: padded-row width above which the pairwise scatter would materialise more
 #: index pairs than the dense incidence product it replaces
 _SCATTER_MAX_WIDTH = 128
@@ -168,7 +170,8 @@ def build_window_crm(
     if crm_matmul is None:
         raw = cooccurrence_counts(compact, h)
     else:
-        H = incidence_matrix(compact, h)
+        with span("host_cgm.incidence"):
+            H = incidence_matrix(compact, h)
         raw = np.asarray(crm_matmul(H)).astype(np.int64)
         np.fill_diagonal(raw, 0)
     norm = minmax_normalise(raw)

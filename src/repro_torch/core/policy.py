@@ -28,6 +28,7 @@ from typing import Any, Callable, Protocol, runtime_checkable
 
 import numpy as np
 
+from ..spans import span
 from .akpc import AKPCConfig
 from .cliques import CliquePartition, generate_cliques
 from .cost import CacheEnvironment, CostBreakdown, CostModel, CostParams
@@ -444,23 +445,25 @@ class AKPCPolicy(BasePolicy):
         del servers, now
         cfg = self.config
         t0 = _time.perf_counter()
-        crm = build_window_crm(
-            items, self.n, cfg.params.theta, cfg.top_frac,
-            crm_matmul=self._crm_matmul,
-            top_frac_of=cfg.top_frac_of,
-        )
+        with span("host_cgm.window_crm"):
+            crm = build_window_crm(
+                items, self.n, cfg.params.theta, cfg.top_frac,
+                crm_matmul=self._crm_matmul,
+                top_frac_of=cfg.top_frac_of,
+            )
         omega = cfg.params.omega if cfg.enable_split else self.n
-        part = generate_cliques(
-            self._partition,
-            self._prev_crm,
-            crm,
-            self.n,
-            omega,
-            cfg.params.gamma,
-            pair_edges=self._pair_edges,
-            enable_split=cfg.enable_split,
-            enable_approx_merge=cfg.enable_approx_merge,
-        )
+        with span("host_cgm.cliques"):
+            part = generate_cliques(
+                self._partition,
+                self._prev_crm,
+                crm,
+                self.n,
+                omega,
+                cfg.params.gamma,
+                pair_edges=self._pair_edges,
+                enable_split=cfg.enable_split,
+                enable_approx_merge=cfg.enable_approx_merge,
+            )
         self._prev_crm = crm
         self._record(part, _time.perf_counter() - t0)
         return part

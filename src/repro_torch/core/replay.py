@@ -44,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from ..spans import span
 from .cost import (
     CacheEnvironment,
     CostBreakdown,
@@ -59,8 +60,6 @@ from .sharded_state import take_rows as _take
 from .state_layout import StateLayout
 
 _I64 = torch.int64
-#: named host spans for ``torch.profiler``
-_span = torch.profiler.record_function
 
 #: cost models the device hooks express
 DEVICE_COST_MODELS = ("table1", "tiered", "heterogeneous")
@@ -734,7 +733,7 @@ def build_host_schedule(partition0, trace, clique_generator, t_cg, *,
     cg0 = getattr(pol, "cg_seconds", 0.0)
     lookup.use_kernel = use_kernels
     look0 = lookup.stats()
-    with _span("host.schedule"):
+    with span("host.schedule"):
         schedule = build_schedule(
             partition0, trace, clique_generator, t_cg, model=model, env=env,
             batch_size=batch_size, seed_new_cliques=seed_new_cliques,
@@ -777,7 +776,7 @@ def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,
         state = CacheState.fresh(s0.partition0, s0.m)
     stats: dict = {}
     lay = StateLayout.resolve(layout)
-    with _span("host.scan"):
+    with span("host.scan"):
         if lay.places_rows:
             E0, a0 = _placed_state(state, s0.state_rows, s0.state_cols, lay,
                                    device, block=block, lanes=S)

@@ -8,8 +8,10 @@ Pallas kernels in when a TPU is attached; the port wires its CUDA kernels
 ``crm_update`` and ``clique_pair_edges`` in when the replay runs on CUDA.
 Each hook takes host numpy, uploads it once, runs the kernel (or, with
 ``use_kernels=False``, its plain version on the same card) and returns
-host numpy.  On the CPU there are no hooks, and the numpy paths of
-``core.crm`` / ``core.cliques`` run, as in the reference without a TPU.
+host numpy; its uploads and its read-back are the spans
+``host_cgm.upload`` and ``host_cgm.readback``.  On the CPU there are no
+hooks, and the numpy paths of ``core.crm`` / ``core.cliques`` run, as in
+the reference without a TPU.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..spans import span
 from . import capture
 from .clique_density import clique_pair_edges, clique_pair_edges_plain
 from .crm_update import crm_update, crm_update_plain
@@ -41,14 +44,20 @@ def cgm_hooks(device, use_kernels: bool = True) -> tuple[Callable, Callable]:
 
     def crm_matmul(H):
         capture.keep_largest("crm_update", np.size(H), lambda: (H.copy(),))
-        Hd = torch.as_tensor(np.ascontiguousarray(H, np.float32)).to(dev)
-        return mm_fn(Hd).cpu().numpy()
+        with span("host_cgm.upload"):
+            Hd = torch.as_tensor(np.ascontiguousarray(H, np.float32)).to(dev)
+        out = mm_fn(Hd)
+        with span("host_cgm.readback"):
+            return out.cpu().numpy()
 
     def pair_edges(M, A):
         capture.keep_largest("clique_pair_edges", np.size(M),
                              lambda: (M.copy(), A.copy()))
-        Md = torch.as_tensor(np.ascontiguousarray(M, np.float32)).to(dev)
-        Ad = torch.as_tensor(np.ascontiguousarray(A, np.float32)).to(dev)
-        return pe_fn(Md, Ad).cpu().numpy()
+        with span("host_cgm.upload"):
+            Md = torch.as_tensor(np.ascontiguousarray(M, np.float32)).to(dev)
+            Ad = torch.as_tensor(np.ascontiguousarray(A, np.float32)).to(dev)
+        out = pe_fn(Md, Ad)
+        with span("host_cgm.readback"):
+            return out.cpu().numpy()
 
     return crm_matmul, pair_edges

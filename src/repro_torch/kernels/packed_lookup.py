@@ -31,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from ..spans import span
 from . import _build, capture
 
 #: the C signature of the engine's launch function
@@ -186,7 +187,7 @@ class CliqueLookup:
     grow as needed, and runs one gather (the kernel, or with
     ``use_kernel=False`` its plain version) and one sync.  -1 padding
     slots stay -1.  ``calls``, ``seconds``, the ids' bytes each way and
-    the table's uploads are counted.
+    the table's uploads are counted; a call is the span ``host.lookup``.
     """
 
     def __init__(self, device=None, use_kernel: bool = True):
@@ -251,7 +252,8 @@ class CliqueLookup:
             "packed_lookup", np.size(items),
             lambda: (np.array(clique_of), np.array(items)))
         t0 = time.perf_counter()
-        out = self.gather(clique_of, items)
+        with span("host.lookup"):
+            out = self.gather(clique_of, items)
         self.seconds += time.perf_counter() - t0
         self.calls += 1
         return out

@@ -93,6 +93,7 @@ from ..core.replay import (
 from ..core.schedule import pad_schedule, schedule_dims
 from ..core.session import CacheSession, check_chunk
 from ..kernels.packed_lookup import CliqueLookup
+from ..spans import span
 from ..traces.loader import Trace
 
 CGM_MODES = ("auto", "force", "off")
@@ -192,7 +193,8 @@ class LiveServingEngine:
         self.cost_reads = 0
         self.state_reads = 0
         #: the dispatches' counts and seconds, summed over chunks: the host
-        #: schedule's build and lookups, the device CGM's syncs by kind
+        #: schedule's build and lookups, the device CGM's syncs by kind, the
+        #: seconds submits waited on the ring (``ring_wait_s``)
         self.loop_stats: dict = {}
         self._cgm = False
         if cgm != "off":
@@ -376,29 +378,38 @@ class LiveServingEngine:
     def _stage(self, arrays: dict) -> tuple[dict, _RingSlot | None]:
         """One chunk's host arrays on the device (int32 as int64), through
         the next ring slot's pinned buffers.  The slot is refilled only
-        after the event of its previous chunk has completed."""
-        if not self._cuda:
-            return {k: torch.from_numpy(np.ascontiguousarray(
-                a, np.int64 if a.dtype == np.int32 else a.dtype))
-                for k, a in arrays.items()}, None
-        slot = self._slots[self._slot]
-        self._slot = (self._slot + 1) % self.ring
-        if slot.event is not None and not slot.event.query():
-            slot.event.synchronize()
-            self.ring_waits += 1
-        out = {}
-        for key, a in arrays.items():
-            want = np.int64 if a.dtype == np.int32 else a.dtype
-            dtype = torch.from_numpy(np.zeros(0, want)).dtype
-            buf = slot.bufs.get(key)
-            if buf is None or buf.dtype != dtype or buf.numel() < a.size:
-                buf = torch.empty(max(1, a.size), dtype=dtype,
-                                  pin_memory=True)
-                slot.bufs[key] = buf
-            host = buf[:a.size]
-            host.numpy()[:] = a.reshape(-1)
-            out[key] = host.view(a.shape).to(self.device, non_blocking=True)
-        return out, slot
+        after the event of its previous chunk has completed; the seconds
+        waited for it are summed in ``loop_stats["ring_wait_s"]``."""
+        with span("live.stage"):
+            if not self._cuda:
+                return {k: torch.from_numpy(np.ascontiguousarray(
+                    a, np.int64 if a.dtype == np.int32 else a.dtype))
+                    for k, a in arrays.items()}, None
+            slot = self._slots[self._slot]
+            self._slot = (self._slot + 1) % self.ring
+            waited = 0.0
+            if slot.event is not None and not slot.event.query():
+                t0 = _time.perf_counter()
+                with span("live.ring_wait"):
+                    slot.event.synchronize()
+                waited = _time.perf_counter() - t0
+                self.ring_waits += 1
+            self.loop_stats["ring_wait_s"] = (
+                self.loop_stats.get("ring_wait_s", 0.0) + waited)
+            out = {}
+            for key, a in arrays.items():
+                want = np.int64 if a.dtype == np.int32 else a.dtype
+                dtype = torch.from_numpy(np.zeros(0, want)).dtype
+                buf = slot.bufs.get(key)
+                if buf is None or buf.dtype != dtype or buf.numel() < a.size:
+                    buf = torch.empty(max(1, a.size), dtype=dtype,
+                                      pin_memory=True)
+                    slot.bufs[key] = buf
+                host = buf[:a.size]
+                host.numpy()[:] = a.reshape(-1)
+                out[key] = host.view(a.shape).to(self.device,
+                                                 non_blocking=True)
+            return out, slot
 
     def _finish_chunk(self, slot: _RingSlot | None, stats: dict) -> None:
         """Record the chunk's event in its slot and on the ring."""
@@ -467,38 +478,47 @@ class LiveServingEngine:
         self.compiles += 1
 
     def _dispatch(self, items, servers, times) -> None:
-        """Build one chunk's schedule and launch it on the ring."""
-        if self._cgm:
-            self._dispatch_cgm(items, servers, times)
-            return
+        """Build one chunk's schedule and launch it on the ring: the span
+        ``live.dispatch``, in which the chunk's ``live.build`` and
+        ``live.stage`` nest."""
+        with span("live.dispatch"):
+            if self._cgm:
+                self._dispatch_cgm(items, servers, times)
+            else:
+                self._dispatch_host(items, servers, times)
+
+    def _dispatch_host(self, items, servers, times) -> None:
+        """A chunk through the host schedule, then one scan."""
         self._ensure_carry()
         sess = self.session
         eng = sess.engine
         windowed = sess._t_cg is not None
         if windowed and sess._next_cg is None:
             sess._next_cg = float(times[0]) + sess._t_cg
-        with self._build_context():
-            sched, stats = build_host_schedule(
-                self._part, Trace(times=times, servers=servers, items=items,
-                                  n=self.n, m=self.m),
-                sess.policy.on_window if windowed else None, sess._t_cg,
-                model=eng.model, env=eng.env, lookup=self._lookup,
-                seed_new_cliques=eng.seed_new_cliques, layout=self.layout,
-                use_kernels=self.use_kernels,
-                next_cg0=sess._next_cg if windowed else None,
-                win_prefix=(sess.window_arrays()
-                            if windowed and sess._win else None))
-        if windowed:
-            sess.advance_window(sched, items, servers)
-        sess._last_t = float(times[-1])
-        self._part = sched.final_partition
-        self._host_nreq += sched.n_requests
-        self._host_nitem += sched.n_item_requests
-        self._dispatched_total += times.shape[0]
-        dims = schedule_dims(sched)
-        if self._dims is None or any(dims[k] > self._dims[k] for k in dims):
-            self._fix_dims(dims)
-        sched = pad_schedule(sched, self._dims)
+        with span("live.build"):
+            with self._build_context():
+                sched, stats = build_host_schedule(
+                    self._part, Trace(times=times, servers=servers,
+                                      items=items, n=self.n, m=self.m),
+                    sess.policy.on_window if windowed else None, sess._t_cg,
+                    model=eng.model, env=eng.env, lookup=self._lookup,
+                    seed_new_cliques=eng.seed_new_cliques,
+                    layout=self.layout, use_kernels=self.use_kernels,
+                    next_cg0=sess._next_cg if windowed else None,
+                    win_prefix=(sess.window_arrays()
+                                if windowed and sess._win else None))
+            if windowed:
+                sess.advance_window(sched, items, servers)
+            sess._last_t = float(times[-1])
+            self._part = sched.final_partition
+            self._host_nreq += sched.n_requests
+            self._host_nitem += sched.n_item_requests
+            self._dispatched_total += times.shape[0]
+            dims = schedule_dims(sched)
+            if self._dims is None or any(dims[k] > self._dims[k]
+                                         for k in dims):
+                self._fix_dims(dims)
+            sched = pad_schedule(sched, self._dims)
         xs, slot = self._stage(sched.xs)
         t0 = _time.perf_counter()
         run_schedule(sched, self._spec_d, self._statics, self._E,
@@ -563,48 +583,49 @@ class LiveServingEngine:
         card inside the replay."""
         sess = self.session
         eng = sess.engine
-        if sess._next_cg is None:
-            sess._next_cg = float(times[0]) + sess._t_cg
-        # the open window's rows are already in the carry's buffer; the
-        # schedule's head window must count them
-        pre_rows = pre_slots = pre_d = 0
-        for w_it, _ in sess._win:
-            pre_rows += int(w_it.shape[0])
-            pre_slots += int(w_it.size)
-            pre_d = max(pre_d, int(w_it.shape[1]))
-        sched = build_cgm_schedule(
-            Trace(times=times, servers=servers, items=items, n=self.n,
-                  m=self.m), sess._t_cg,
-            uses_sizes=bool(eng.model.uses_sizes), next_cg0=sess._next_cg,
-            hot_dims=policy_hot_dims(self.policy), prefix_rows=pre_rows,
-            prefix_slots=pre_slots)
-        dims = {"nb": sched.nb, "B": sched.B, "d": max(sched.d, pre_d),
-                "h": sched.h, "W": sched.wcap}
-        if self._cgm_dims is None or any(
-                dims[k] > self._cgm_dims[k] for k in dims):
-            grown = {"nb": _bucket(dims["nb"] * 2, 4, 4),
-                     "B": _bucket(dims["B"] * 2, 32, 32),
-                     "d": dims["d"],
-                     "h": min(self.n, _bucket(dims["h"] * 2, 32, 32)),
-                     "W": _bucket(dims["W"] * 2, 64, 64)}
-            self._cgm_dims = (grown if self._cgm_dims is None else
-                              {k: max(self._cgm_dims[k], grown[k])
-                               for k in grown})
-            self.compiles += 1
-        sched = pad_cgm_schedule(sched, self._cgm_dims)
-        # a larger B re-derives wcap: fold it back into the dims
-        self._cgm_dims["W"] = max(self._cgm_dims["W"], sched.wcap)
-        # the carry is built from the open window BEFORE this chunk
-        self._ensure_cgm_carry(sched)
-        c = self._cgm_carry
-        ch = int(c["p_idx"].shape[0])
-        cw, cd = (int(x) for x in c["wbuf"].shape)
-        if ch < sched.h or cw < sched.wcap or cd < sched.d:
-            self._grow_cgm_carry(sched.h, sched.wcap, sched.d)
-        elif ch > sched.h:
-            # a restored previous-window CRM made the carry's h larger
-            self._cgm_dims["h"] = max(self._cgm_dims["h"], ch)
-        sess.advance_window(sched, items, servers)
+        with span("live.build"):
+            if sess._next_cg is None:
+                sess._next_cg = float(times[0]) + sess._t_cg
+            # the open window's rows are already in the carry's buffer; the
+            # schedule's head window must count them
+            pre_rows = pre_slots = pre_d = 0
+            for w_it, _ in sess._win:
+                pre_rows += int(w_it.shape[0])
+                pre_slots += int(w_it.size)
+                pre_d = max(pre_d, int(w_it.shape[1]))
+            sched = build_cgm_schedule(
+                Trace(times=times, servers=servers, items=items, n=self.n,
+                      m=self.m), sess._t_cg,
+                uses_sizes=bool(eng.model.uses_sizes), next_cg0=sess._next_cg,
+                hot_dims=policy_hot_dims(self.policy), prefix_rows=pre_rows,
+                prefix_slots=pre_slots)
+            dims = {"nb": sched.nb, "B": sched.B, "d": max(sched.d, pre_d),
+                    "h": sched.h, "W": sched.wcap}
+            if self._cgm_dims is None or any(
+                    dims[k] > self._cgm_dims[k] for k in dims):
+                grown = {"nb": _bucket(dims["nb"] * 2, 4, 4),
+                         "B": _bucket(dims["B"] * 2, 32, 32),
+                         "d": dims["d"],
+                         "h": min(self.n, _bucket(dims["h"] * 2, 32, 32)),
+                         "W": _bucket(dims["W"] * 2, 64, 64)}
+                self._cgm_dims = (grown if self._cgm_dims is None else
+                                  {k: max(self._cgm_dims[k], grown[k])
+                                   for k in grown})
+                self.compiles += 1
+            sched = pad_cgm_schedule(sched, self._cgm_dims)
+            # a larger B re-derives wcap: fold it back into the dims
+            self._cgm_dims["W"] = max(self._cgm_dims["W"], sched.wcap)
+            # the carry is built from the open window BEFORE this chunk
+            self._ensure_cgm_carry(sched)
+            c = self._cgm_carry
+            ch = int(c["p_idx"].shape[0])
+            cw, cd = (int(x) for x in c["wbuf"].shape)
+            if ch < sched.h or cw < sched.wcap or cd < sched.d:
+                self._grow_cgm_carry(sched.h, sched.wcap, sched.d)
+            elif ch > sched.h:
+                # a restored previous-window CRM made the carry's h larger
+                self._cgm_dims["h"] = max(self._cgm_dims["h"], ch)
+            sess.advance_window(sched, items, servers)
         if sched.boundary_hit:
             self._cgm_bound = True
         sess._last_t = float(times[-1])
