@@ -6,9 +6,10 @@ next boundary), the hot-set rule, and Alg. 2 itself for the host clique
 generation (:func:`build_window_crm`).  Counting co-occurrences is
 ``H^T H`` with H the one-hot request/item incidence: the ``crm_matmul``
 hook runs that product on the card (kernel ``crm_update``, wired by
-:mod:`repro_torch.kernels.autowire`); without a hook the numpy pair
-scatter gives the same counts.  The device clique generation
-(:mod:`repro_torch.core.cgm`) builds its CRM on the card instead.
+:mod:`repro_torch.kernels.autowire`, which builds H there from the hot
+id lists); without a hook the numpy pair scatter gives the same counts.
+The device clique generation (:mod:`repro_torch.core.cgm`) builds its
+CRM on the card instead.
 """
 from __future__ import annotations
 
@@ -158,7 +159,10 @@ def build_window_crm(
     """Alg. 2 end to end for one window.
 
     ``crm_matmul``: optional ``(H) -> H^T H`` on the card (the
-    ``crm_update`` hook); defaults to the numpy pair scatter.
+    ``crm_update`` hook); defaults to the numpy pair scatter.  A hook with
+    a ``from_ids(compact, h)`` entry gets the (B, d) int32 hot-remapped
+    ids instead of a host ``H`` (the autowired one builds ``H`` on the
+    card).
     ``top_frac_of``: hot-set denominator, see :func:`hot_items_of_window`.
     """
     hot = hot_items_of_window(items, n, top_frac, top_frac_of)
@@ -170,9 +174,14 @@ def build_window_crm(
     if crm_matmul is None:
         raw = cooccurrence_counts(compact, h)
     else:
-        with span("host_cgm.incidence"):
-            H = incidence_matrix(compact, h)
-        raw = np.asarray(crm_matmul(H)).astype(np.int64)
+        from_ids = getattr(crm_matmul, "from_ids", None)
+        if from_ids is not None:        # H built where the hook runs
+            counts = from_ids(compact, h)
+        else:
+            with span("host_cgm.incidence"):
+                H = incidence_matrix(compact, h)
+            counts = crm_matmul(H)
+        raw = np.asarray(counts).astype(np.int64)
         np.fill_diagonal(raw, 0)
     norm = minmax_normalise(raw)
     binary = norm > theta

@@ -722,7 +722,9 @@ def build_host_schedule(partition0, trace, clique_generator, t_cg, *,
     the lookup's device), items -> cliques through ``lookup`` (a
     :class:`~repro_torch.kernels.packed_lookup.CliqueLookup`).  Returns
     ``(schedule, stats)``: the build's seconds, the clique generation's
-    and the lookups'."""
+    and the lookups', and the windows whose incidence the CRM hook built
+    on the device from the id lists (``crm_id_windows``) with the bytes of
+    ids it uploaded (``crm_id_bytes``)."""
     from .schedule import build_schedule
 
     pol = getattr(clique_generator, "__self__", None)
@@ -731,6 +733,8 @@ def build_host_schedule(partition0, trace, clique_generator, t_cg, *,
         wire(lookup.device, use_kernels)
     t0 = time.perf_counter()
     cg0 = getattr(pol, "cg_seconds", 0.0)
+    mm = getattr(pol, "_crm_matmul", None)
+    ids0 = (getattr(mm, "id_windows", 0), getattr(mm, "id_bytes", 0))
     lookup.use_kernel = use_kernels
     look0 = lookup.stats()
     with span("host.schedule"):
@@ -742,8 +746,11 @@ def build_host_schedule(partition0, trace, clique_generator, t_cg, *,
     wall = time.perf_counter() - t0
     look = {key: v - look0[key] for key, v in lookup.stats().items()}
     cg_s = getattr(pol, "cg_seconds", 0.0) - cg0
-    return schedule, dict(schedule_s=wall, cg_s=cg_s, **look,
-                          schedule_rest_s=wall - cg_s - look["lookup_s"])
+    return schedule, dict(
+        schedule_s=wall, cg_s=cg_s, **look,
+        schedule_rest_s=wall - cg_s - look["lookup_s"],
+        crm_id_windows=getattr(mm, "id_windows", 0) - ids0[0],
+        crm_id_bytes=getattr(mm, "id_bytes", 0) - ids0[1])
 
 
 def replay_lanes(schedule, specs: list, statics: tuple, costs: list, *,

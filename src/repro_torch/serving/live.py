@@ -194,8 +194,11 @@ class LiveServingEngine:
         self.state_reads = 0
         #: the dispatches' counts and seconds, summed over chunks: the host
         #: schedule's build and lookups, the device CGM's syncs by kind, the
-        #: seconds submits waited on the ring (``ring_wait_s``)
-        self.loop_stats: dict = {}
+        #: seconds submits waited on the ring (``ring_wait_s``), the host
+        #: CGM's windows whose incidence was built on the device and the
+        #: bytes of ids uploaded for them (``crm_id_windows`` /
+        #: ``crm_id_bytes``; 0 under the device CGM, which calls no hook)
+        self.loop_stats: dict = {"crm_id_windows": 0, "crm_id_bytes": 0}
         self._cgm = False
         if cgm != "off":
             eligible = wants_device_cgm(

@@ -10,7 +10,8 @@
   ``host_cgm.cliques`` a window, inside the policy's ``cg_seconds``, and
   one ``host.lookup`` a lookup call;
 * the host CGM hooks: one ``host_cgm.upload`` and one
-  ``host_cgm.readback`` a call;
+  ``host_cgm.readback`` a call, and through ``crm_matmul``'s id entry the
+  device build of H between them (``host_cgm.incidence``);
 * tracing changes no cost and no partition;
 * on the card (``gpu``): a submit that waited on the ring counts its
   seconds in ``loop_stats["ring_wait_s"]``.
@@ -22,7 +23,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core import CostParams, get_policy
+from repro_torch.core import CostParams, build_window_crm, get_policy
 from repro_torch.kernels.autowire import cgm_hooks
 from repro_torch.serving import LiveServingEngine
 from repro_torch.spans import span
@@ -140,24 +141,37 @@ def test_host_cgm_spans_count_windows_and_lookups(trace):
     assert all(_inside(sp, dispatch) for sp in _named(spans, "live.stage"))
 
 
-@pytest.mark.parametrize("hook", ["crm_matmul", "pair_edges"])
+@pytest.mark.parametrize("hook", ["crm_matmul", "pair_edges", "crm_ids"])
 def test_cgm_hooks_span_one_upload_and_one_readback(hook):
+    """``crm_ids``: Alg. 2 through the hook's id entry, its ids' upload,
+    the device build of H (``host_cgm.incidence``) and the read-back one
+    span each, in that order."""
     crm_matmul, pair_edges = cgm_hooks("cpu")
     rng = np.random.default_rng(0)
     H = (rng.random((40, 12)) < 0.3).astype(np.float32)
     A = (rng.random((12, 12)) < 0.4).astype(np.float32)
     A = np.triu(A, 1) + np.triu(A, 1).T
     M = (rng.random((6, 12)) < 0.3).astype(np.float32)
+    items = rng.integers(-1, 12, size=(40, 5)).astype(np.int32)
     if hook == "crm_matmul":
         out, spans = _traced(lambda: crm_matmul(H))
         want = H.T @ H
         np.fill_diagonal(want, 0.0)        # the CRM has no self pairs
+    elif hook == "crm_ids":
+        got, spans = _traced(lambda: build_window_crm(
+            items, 12, 0.2, 1.0, crm_matmul=crm_matmul))
+        out, want = got.raw, build_window_crm(items, 12, 0.2, 1.0).raw
+        assert crm_matmul.id_windows == 1
     else:
         out, spans = _traced(lambda: pair_edges(M, A))
         want = M @ A @ M.T
     assert np.array_equal(out, want)
     assert len(_named(spans, "host_cgm.upload")) == 1
     assert len(_named(spans, "host_cgm.readback")) == 1
+    if hook == "crm_ids":
+        (up,), (inc,), (back,) = (_named(spans, name) for name in (
+            "host_cgm.upload", "host_cgm.incidence", "host_cgm.readback"))
+        assert up[2] <= inc[1] and inc[2] <= back[1]
 
 
 @pytest.mark.parametrize("cgm", ["force", "off"])
