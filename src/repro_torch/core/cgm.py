@@ -280,7 +280,8 @@ def _adjust_partition(of, gsize, binary, W, hot_idx, lut, addM, remM,
     first (during removals groups only split, during additions they only
     merge), keeping the survivors' lexicographic order.  The final
     compaction ranks alive slots ascending.  ``of`` and ``gsize`` carry a
-    dump slot ``n`` inside the loops.
+    dump slot ``n`` inside the loops.  Each phase (its edge list's sync and
+    its per-edge loop) is spanned: ``cgm.adjust.remove``, ``cgm.adjust.add``.
     """
     dev = of.device
     omega = int(cspec["omega"])
@@ -290,63 +291,66 @@ def _adjust_partition(of, gsize, binary, W, hot_idx, lut, addM, remM,
     ml = _member_lists(of[:n], n, gcap)
     pads_g = torch.full((gcap,), n, dtype=_I64, device=dev)
 
-    og_p = of[rem_map.clamp(0, n - 1)]               # group per prev slot
-    remM = remM & (og_p[:, None] == og_p[None, :])
-    rem_f = _nonzero(stats, "adjust", remM.reshape(-1))
-    _count(stats, "edges_removed", rem_f.shape[0])
-    for i in range(rem_f.shape[0]):
-        fi = rem_f[i:i + 1]
-        u = _take(rem_map, fi // h)
-        v = _take(rem_map, fi % h)
-        cu = _take(of, u)
-        do = (cu == _take(of, v)) & (_take(gsize, cu) > 1)
-        mem = ml[cu][0]                              # (gcap,) ascending ids
-        gvalid = mem < n
-        Wsub = _sub_weights(W, lut, mem)
-        pu = (mem == u).to(torch.float32).argmax().reshape(1)
-        pv = (mem == v).to(torch.float32).argmax().reshape(1)
-        right_g = _split_sides_compact(Wsub, gvalid, pu, pv, gcap) & do
-        nr = right_g.sum().reshape(1)
-        of.index_put_((torch.where(right_g, mem, n),), ngroups.expand(gcap))
-        g2 = gsize.clone()
-        g2.index_add_(0, cu, -nr)
-        g2.index_copy_(0, ngroups, nr)
-        gsize = torch.where(do, g2, gsize)
-        lit = torch.sort(torch.where(gvalid & ~right_g, mem, n)).values
-        rit = torch.sort(torch.where(right_g, mem, n)).values
-        ml.index_copy_(0, torch.where(do, cu, n), lit[None])
-        ml.index_copy_(0, torch.where(do, ngroups, n), rit[None])
-        ngroups = ngroups + do.to(_I64)
+    with span("cgm.adjust.remove"):
+        og_p = of[rem_map.clamp(0, n - 1)]           # group per prev slot
+        remM = remM & (og_p[:, None] == og_p[None, :])
+        rem_f = _nonzero(stats, "adjust", remM.reshape(-1))
+        _count(stats, "edges_removed", rem_f.shape[0])
+        for i in range(rem_f.shape[0]):
+            fi = rem_f[i:i + 1]
+            u = _take(rem_map, fi // h)
+            v = _take(rem_map, fi % h)
+            cu = _take(of, u)
+            do = (cu == _take(of, v)) & (_take(gsize, cu) > 1)
+            mem = ml[cu][0]                          # (gcap,) ascending ids
+            gvalid = mem < n
+            Wsub = _sub_weights(W, lut, mem)
+            pu = (mem == u).to(torch.float32).argmax().reshape(1)
+            pv = (mem == v).to(torch.float32).argmax().reshape(1)
+            right_g = _split_sides_compact(Wsub, gvalid, pu, pv, gcap) & do
+            nr = right_g.sum().reshape(1)
+            of.index_put_((torch.where(right_g, mem, n),),
+                          ngroups.expand(gcap))
+            g2 = gsize.clone()
+            g2.index_add_(0, cu, -nr)
+            g2.index_copy_(0, ngroups, nr)
+            gsize = torch.where(do, g2, gsize)
+            lit = torch.sort(torch.where(gvalid & ~right_g, mem, n)).values
+            rit = torch.sort(torch.where(right_g, mem, n)).values
+            ml.index_copy_(0, torch.where(do, cu, n), lit[None])
+            ml.index_copy_(0, torch.where(do, ngroups, n), rit[None])
+            ngroups = ngroups + do.to(_I64)
 
-    og_c = of[hot_idx.clamp(0, n - 1)]               # group per cur slot
-    addM = addM & (og_c[:, None] != og_c[None, :])
-    add_f = _nonzero(stats, "adjust", addM.reshape(-1))
-    _count(stats, "edges_added", add_f.shape[0])
-    for i in range(add_f.shape[0]):
-        fi = add_f[i:i + 1]
-        u = _take(hot_idx, fi // h)
-        v = _take(hot_idx, fi % h)
-        cu = _take(of, u)
-        cv = _take(of, v)
-        g = _take(gsize, cu) + _take(gsize, cv)
-        # fully connected: the union's in-edge count must be C(g, 2),
-        # probed over the union's member lists; cold members have no edges
-        mem = torch.cat([ml[cu][0], ml[cv][0]])      # (2 gcap,)
-        mh = lut[mem]
-        mhc = mh.clamp(min=0)
-        okm = (mh >= 0)[:, None] & (mh >= 0)[None, :]
-        ne = (binary[mhc][:, mhc] & okm).sum() // 2
-        do = (cu != cv) & (g <= omega) & (ne == g * (g - 1) // 2)
-        keep = torch.minimum(cu, cv)
-        drop = torch.maximum(cu, cv)
-        of.index_put_((torch.where(do, mem, n),), keep.expand(2 * gcap))
-        g2 = gsize.clone()
-        g2.index_copy_(0, keep, g)
-        g2.index_fill_(0, drop, 0)
-        gsize = torch.where(do, g2, gsize)
-        ml.index_copy_(0, torch.where(do, keep, n),
-                       torch.sort(mem).values[:gcap][None])
-        ml.index_copy_(0, torch.where(do, drop, n), pads_g[None])
+    with span("cgm.adjust.add"):
+        og_c = of[hot_idx.clamp(0, n - 1)]           # group per cur slot
+        addM = addM & (og_c[:, None] != og_c[None, :])
+        add_f = _nonzero(stats, "adjust", addM.reshape(-1))
+        _count(stats, "edges_added", add_f.shape[0])
+        for i in range(add_f.shape[0]):
+            fi = add_f[i:i + 1]
+            u = _take(hot_idx, fi // h)
+            v = _take(hot_idx, fi % h)
+            cu = _take(of, u)
+            cv = _take(of, v)
+            g = _take(gsize, cu) + _take(gsize, cv)
+            # fully connected: the union's in-edge count must be C(g, 2),
+            # probed over the union's member lists; cold members have no edges
+            mem = torch.cat([ml[cu][0], ml[cv][0]])  # (2 gcap,)
+            mh = lut[mem]
+            mhc = mh.clamp(min=0)
+            okm = (mh >= 0)[:, None] & (mh >= 0)[None, :]
+            ne = (binary[mhc][:, mhc] & okm).sum() // 2
+            do = (cu != cv) & (g <= omega) & (ne == g * (g - 1) // 2)
+            keep = torch.minimum(cu, cv)
+            drop = torch.maximum(cu, cv)
+            of.index_put_((torch.where(do, mem, n),), keep.expand(2 * gcap))
+            g2 = gsize.clone()
+            g2.index_copy_(0, keep, g)
+            g2.index_fill_(0, drop, 0)
+            gsize = torch.where(do, g2, gsize)
+            ml.index_copy_(0, torch.where(do, keep, n),
+                           torch.sort(mem).values[:gcap][None])
+            ml.index_copy_(0, torch.where(do, drop, n), pads_g[None])
 
     of, gsize = of[:n], gsize[:n]
     alive = gsize > 0

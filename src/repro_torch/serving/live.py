@@ -70,6 +70,7 @@ import torch
 
 from ..core.cgm import cgm_loop_statics, init_cgm_carry, run_cgm_schedule
 from ..core.cgm_schedule import (
+    MAX_DEVICE_CGM_HOT,
     build_cgm_schedule,
     cgm_spec,
     pad_cgm_schedule,
@@ -197,7 +198,10 @@ class LiveServingEngine:
         #: seconds submits waited on the ring (``ring_wait_s``), the host
         #: CGM's windows whose incidence was built on the device and the
         #: bytes of ids uploaded for them (``crm_id_windows`` /
-        #: ``crm_id_bytes``; 0 under the device CGM, which calls no hook)
+        #: ``crm_id_bytes``; 0 under the device CGM, which calls no hook);
+        #: and, not summed, the device CGM's hot capacity: the one its
+        #: boundaries run at (``cgm_h``) and the largest a chunk's schedule
+        #: asked for (``cgm_h_need``)
         self.loop_stats: dict = {"crm_id_windows": 0, "crm_id_bytes": 0}
         self._cgm = False
         if cgm != "off":
@@ -602,6 +606,11 @@ class LiveServingEngine:
                 uses_sizes=bool(eng.model.uses_sizes), next_cg0=sess._next_cg,
                 hot_dims=policy_hot_dims(self.policy), prefix_rows=pre_rows,
                 prefix_slots=pre_slots)
+            if sched.h > MAX_DEVICE_CGM_HOT:
+                raise ValueError(
+                    f"device CGM: a chunk's hot capacity h={sched.h} passes "
+                    f"MAX_DEVICE_CGM_HOT={MAX_DEVICE_CGM_HOT}; serve this "
+                    "stream with cgm='off'")
             dims = {"nb": sched.nb, "B": sched.B, "d": max(sched.d, pre_d),
                     "h": sched.h, "W": sched.wcap}
             if self._cgm_dims is None or any(
@@ -609,7 +618,8 @@ class LiveServingEngine:
                 grown = {"nb": _bucket(dims["nb"] * 2, 4, 4),
                          "B": _bucket(dims["B"] * 2, 32, 32),
                          "d": dims["d"],
-                         "h": min(self.n, _bucket(dims["h"] * 2, 32, 32)),
+                         "h": min(self.n, MAX_DEVICE_CGM_HOT,
+                                  _bucket(dims["h"] * 2, 32, 32)),
                          "W": _bucket(dims["W"] * 2, 64, 64)}
                 self._cgm_dims = (grown if self._cgm_dims is None else
                                   {k: max(self._cgm_dims[k], grown[k])
@@ -628,6 +638,9 @@ class LiveServingEngine:
             elif ch > sched.h:
                 # a restored previous-window CRM made the carry's h larger
                 self._cgm_dims["h"] = max(self._cgm_dims["h"], ch)
+            self.loop_stats["cgm_h"] = self._cgm_dims["h"]
+            self.loop_stats["cgm_h_need"] = max(
+                self.loop_stats.get("cgm_h_need", 0), dims["h"])
             sess.advance_window(sched, items, servers)
         if sched.boundary_hit:
             self._cgm_bound = True

@@ -20,7 +20,8 @@ numpy oracles (``run_policy(backend="numpy")`` and the numpy
   default device raises;
 * ``cgm="force"`` runs the device clique generation and equals the
   offline replay, with item sizes too; ``cgm="auto"`` takes it for AKPC
-  at a uniform dt;
+  at a uniform dt; its hot capacity grows no further than
+  ``MAX_DEVICE_CGM_HOT``, and a chunk that needs more is refused;
 * the serving bench holds each engine to the offline replay before it
   keeps a time.
 """
@@ -332,6 +333,37 @@ def test_live_cgm_auto_routes_device():
     assert _live(trace, layout="bucketed")._cgm
     assert not _live(trace, layout=StateLayout(kind="row_sharded",
                                                shards=3))._cgm
+
+
+def test_live_cgm_hot_capacity_capped(monkeypatch):
+    """The hot capacity's growth stops at ``MAX_DEVICE_CGM_HOT`` (here cut
+    to 48, between a chunk's 32 and the doubled 64), the boundaries run at
+    the cap and still equal the offline replay; a chunk whose own
+    schedule asks for more than the cap is refused."""
+    from repro_torch.serving import live
+
+    ref_tr = _ref_trace(n_requests=1500)
+    trace = _port(ref_tr)
+    off = ref_run_policy(_ref_policy(top_frac=0.5), ref_tr, backend="numpy")
+
+    def serve():
+        eng = LiveServingEngine(_policy(top_frac=0.5), trace.n, trace.m,
+                                device="cpu", chunk_size=512, cgm="force")
+        _stream(eng, trace)
+        eng.drain()
+        return eng
+
+    eng = serve()
+    assert (eng.loop_stats["cgm_h"], eng.loop_stats["cgm_h_need"]) == (60, 32)
+    monkeypatch.setattr(live, "MAX_DEVICE_CGM_HOT", 48)
+    eng = serve()
+    assert eng.loop_stats["cgm_h"] == eng._cgm_dims["h"] == 48
+    assert eng.loop_stats["cgm_h_need"] == 32
+    _same_costs(off.costs, eng.costs)
+    assert eng.policy.n_windows == off.n_windows
+    monkeypatch.setattr(live, "MAX_DEVICE_CGM_HOT", 16)
+    with pytest.raises(ValueError, match="h=32 passes MAX_DEVICE_CGM_HOT=16"):
+        serve()
 
 
 def test_serve_bench_holds_each_engine_to_offline():

@@ -3,9 +3,11 @@
 * :func:`~repro_torch.spans.span` is one shared do-nothing context when no
   profiler runs, and a ``torch.profiler`` range when one does;
 * the live engine's device-CGM path: one ``live.dispatch`` a chunk, its
-  ``live.build`` / ``live.stage`` inside it, and one ``cgm.sync.<kind>``
+  ``live.build`` / ``live.stage`` inside it, one ``cgm.sync.<kind>``
   span for every sync ``loop_stats`` counts, each inside a
-  ``cgm.boundary``;
+  ``cgm.boundary``, and Alg. 4's ``cgm.adjust.remove`` / ``.add`` once a
+  boundary inside ``cgm.adjust``, holding its syncs; the hot capacity
+  counters ``cgm_h`` / ``cgm_h_need``;
 * its host-schedule path under AKPC: one ``host_cgm.window_crm`` and one
   ``host_cgm.cliques`` a window, inside the policy's ``cg_seconds``, and
   one ``host.lookup`` a lookup call;
@@ -115,6 +117,20 @@ def test_device_cgm_spans_nest_and_match_the_sync_counts(trace):
         syncs = _named(spans, "cgm.sync." + kind)
         assert len(syncs) == count, kind
         assert all(_inside(sp, boundary) for sp in syncs)
+    # Alg. 4's two edge phases: once a boundary each, inside cgm.adjust,
+    # and every adjust sync inside one of them
+    adjust = _named(spans, "cgm.adjust")
+    assert len(adjust) == len(boundary) > 0
+    phases = []
+    for name in ("cgm.adjust.remove", "cgm.adjust.add"):
+        phase = _named(spans, name)
+        assert len(phase) == len(boundary), name
+        assert all(_inside(sp, adjust) for sp in phase)
+        phases += phase
+    assert all(_inside(sp, phases)
+               for sp in _named(spans, "cgm.sync.adjust"))
+    assert eng.loop_stats["cgm_h"] == eng._cgm_dims["h"]
+    assert 0 < eng.loop_stats["cgm_h_need"] <= eng.loop_stats["cgm_h"]
     assert not [sp for sp in spans if sp[0].startswith("cgm_lanes.")]
 
 
